@@ -1,0 +1,538 @@
+#!/usr/bin/env python3
+"""Card smoke run of the PyTorch/CUDA port (cvsd_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # needs one CUDA card and nvcc; about a minute on an H100
+
+Phases (any mismatch or exception ends the run with a non-zero exit code):
+  1. card and build: the card's name and power limit (nvidia-smi), the CUDA
+     kernels built by nvcc from csrc/ (registers / shared memory printed)
+  2. kernel vs plain: the NMS fixpoint kernel bit-exact against its plain
+     PyTorch version at B=128, K=256 and at ragged K=84
+  3. detect: DetectionPipeline at full width (v5m scale, 640 canvas, bf16,
+     pose head) on B=128 320x240 uint8 frames; the kernel timed on the main
+     path's candidates and on two cases that need many fixpoint steps; then
+     float32 at full width on the card and on the CPU with the same weights
+  4. score: ShopformerScorer on 1024 windows, card f32 against CPU f32
+  5. stream: StreamingPipeline at full width on in-memory frames through the
+     read_batch seam (4 streams x 48 frames); then the test-sized fixture on
+     the card and on the CPU, whose event keys must agree and whose score
+     gap is split into the keypoint windows' part and the scorer's part
+
+The float32 comparisons are also read with TF32 allowed: the head-map and
+score limits must tell TF32 from float32; the fixture's TF32 reading is only
+printed (its small detector moves the keypoints little either way).
+  6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
+     then the result line
+
+Kernel launch counts are set to 0 just before the detect and stream phases
+drive the pipeline and read just after; the launches that compare a kernel
+with its plain version are not counted. Bounds are taken against the H100
+SXM's published peaks (3.35 TB/s, 67 TFLOP/s FP32 outside the tensor cores)
+at its full 700 W power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Card vs CPU in float32 differ only in summation order. Each limit is about
+# 10x the float32 reading on an H100 (PERF.md gives the readings). The
+# full-width head maps and the scores are also read with TF32 allowed, and
+# the run fails if their limit would pass TF32, so a convolution or matmul
+# that silently drops to TF32 is caught.
+TOL_RAW_F32 = 5e-5  # max|card - cpu| / max|cpu| on the f32 head maps
+TOL_SCORE_F32 = 5e-6  # max relative error of f32 Shopformer scores on the same windows
+TOL_KPT_F32 = 1e-6  # max|card - cpu| / max|cpu| on the fixture's keypoint windows
+# The fixture's event scores, relative to the largest score. Random weights
+# put a track's keypoints within ~0.01 px of each other, and
+# normalize_sequence divides by that spread, so the windows magnify the
+# keypoints' float32 gap about a hundredfold before the scorer sees them.
+TOL_FIXTURE_SCORE = 5e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` on the card, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_rel(got: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-6)))
+
+
+def normalization_extent(window: np.ndarray) -> float:
+    """The scale that ``normalize_sequence`` divides a (T, 17, 2) keypoint
+    window by (with the neck added): the largest |coordinate - mean|. Small
+    extents magnify keypoint differences in the scorer's input."""
+    from cvsd_tpu_torch.data.poselift import add_neck_keypoint
+
+    coords = np.stack([add_neck_keypoint(f) for f in window])
+    valid = np.any(coords != 0, axis=-1)
+    return float(np.abs(coords[valid] - coords[valid].mean(axis=0)).max())
+
+
+def set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def render_frames(num_frames: int, width: int, height: int, seed: int) -> np.ndarray:
+    """In-memory RGB frames: two bright rectangles (one moving) on noise, the
+    pattern of the repo's rendered test videos, with no codec."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((num_frames, height, width, 3), np.uint8)
+    for t in range(num_frames):
+        frame = rng.integers(0, 60, (height, width, 3)).astype(np.uint8)
+        x = int((t / max(num_frames - 1, 1)) * (width - 60))
+        frame[40:140, x : x + 50] = (120, 180, 220)
+        frame[height - 120 : height - 30, width - 90 : width - 40] = (160, 220, 120)
+        out[t] = frame
+    return out
+
+
+# ---------------------------------------------------------------------------
+# NMS helpers: test cases, data-dependent work, bound
+
+
+def nms_cases(B: int, K: int, device):
+    rng = np.random.default_rng(B * 7919 + K)
+
+    def boxes(lo, hi, wmin, wmax):
+        cxy = rng.uniform(lo, hi, (B, K, 2))
+        wh = rng.uniform(wmin, wmax, (B, K, 2))
+        return np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+
+    ones = np.ones((B, K), np.float32)
+    chain = np.zeros((B, K, 4), np.float32)
+    chain[:, :, 0] = np.arange(K) * 6.0
+    chain[:, :, 2] = chain[:, :, 0] + 10.0
+    chain[:, :, 3] = 10.0
+    over = np.tile(np.array([10, 10, 50, 50], np.float32), (B, K, 1))
+    over += rng.normal(0, 0.5, over.shape).astype(np.float32)
+    zero = boxes(10, 600, 8, 120)
+    zero[:, ::3, 2:] = zero[:, ::3, :2]  # every third box has zero area
+    cases = {
+        "random": (boxes(10, 600, 8, 120), ones, 0.45),
+        "dense": (boxes(100, 200, 40, 120), ones, 0.45),
+        "initial_dead": (boxes(10, 600, 8, 120),
+                         (rng.uniform(size=(B, K)) > 0.3).astype(np.float32), 0.45),
+        "chain": (chain, ones, 0.2),
+        "all_overlap": (over, ones, 0.5),
+        "zero_area": (zero, ones, 0.45),
+    }
+    return {name: (torch.from_numpy(b).to(device), torch.from_numpy(a).to(device), t)
+            for name, (b, a, t) in cases.items()}
+
+
+def jacobi_steps(boxes: torch.Tensor, alive: torch.Tensor, t: float) -> torch.Tensor:
+    """Per image, the Jacobi steps the kernel runs (until a step changes nothing)."""
+    from cvsd_tpu_torch.ops.nms import _suppression_matrix
+
+    B, K, _ = boxes.shape
+    M = _suppression_matrix(boxes, t)
+    init = alive.reshape(B, 1, K)
+    a = init
+    steps = torch.zeros(B, dtype=torch.int64, device=boxes.device)
+    done = torch.zeros(B, dtype=torch.bool, device=boxes.device)
+    for _ in range(K):
+        new = init * (torch.bmm(a, M) < 0.5).to(torch.float32)
+        changed = (new != a).reshape(B, K).any(1)
+        steps += (~done).to(torch.int64)
+        done |= ~changed
+        a = new
+        if bool(done.all()):
+            break
+    return steps
+
+
+def nms_bound(boxes: torch.Tensor, alive: torch.Tensor, t: float):
+    """Least time for the kernel's work on these inputs: bytes (boxes and
+    alive read once, keep written once) over HBM bandwidth, against
+    operations (12 FLOP per upper-triangle IoU, plus one AND per adjacency
+    word per Jacobi step this data needs) over the FP32 peak."""
+    B, K, _ = boxes.shape
+    nbytes = B * K * (16 + 4 + 1)
+    words = sum((j >> 5) + 1 for j in range(K))
+    steps = jacobi_steps(boxes, alive, t)
+    ops = B * (K * (K - 1) // 2) * 12 + int(steps.sum()) * words
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, bound_by, nbytes, ops, steps
+
+
+def library_nms_ms(boxes: torch.Tensor, alive: torch.Tensor, t: float):
+    """torchvision's batched greedy NMS where installed (a yardstick only);
+    core PyTorch has no single call for greedy NMS."""
+    try:
+        import torchvision
+    except ImportError:
+        return None
+    B, K, _ = boxes.shape
+    flat = boxes.reshape(-1, 4)
+    scores = torch.linspace(1.0, 0.0, K, device=boxes.device).repeat(B)
+    idxs = torch.arange(B, device=boxes.device).repeat_interleave(K)
+    return cuda_ms(lambda: torchvision.ops.batched_nms(flat, scores, idxs, t), iters=20)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs the port on a GPU")
+    try:
+        from cvsd_tpu_torch.config import get_default_config
+        from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
+        from cvsd_tpu_torch.models.detector import decode_predictions
+        from cvsd_tpu_torch.models.shopformer import build_shopformer
+        from cvsd_tpu_torch.ops import nms as nms_mod
+        from cvsd_tpu_torch.ops.letterbox import letterbox_batch
+        from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+        from cvsd_tpu_torch.pipeline.streaming import ArraySource, RoundRobinReader, StreamingPipeline
+        from cvsd_tpu_torch.utils import cuda_build
+    except ImportError as e:
+        fail(f"the cvsd_tpu_torch package is not importable here: {e}")
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+
+    # -- 1. card and build ---------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    kernels = ["nms_fixpoint"]
+    cuda_build.build(kernels)
+    log(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    for name in kernels:
+        for line in cuda_build.build_log(name).splitlines():
+            if "ptxas info" in line:
+                log(f"[build] {name}: {line.strip()}")
+    nms_lib = nms_mod._nms_lib()
+    log("[build] nms_fixpoint: dynamic shared memory per CTA " + ", ".join(
+        f"{nms_lib.cvsd_nms_fixpoint_smem_bytes(k)} B at K={k}" for k in (256, 84)))
+    set_tf32(False)
+    kernel_fn = nms_mod.nms_fixpoint_cuda
+
+    # -- 2. kernel vs plain --------------------------------------------------
+    cases_256 = nms_cases(128, 256, dev)
+    for B, K in ((128, 256), (128, 84)):
+        for name, (boxes, alive, t) in (cases_256 if K == 256 else nms_cases(B, K, dev)).items():
+            keep = kernel_fn(boxes, alive, t)
+            torch.cuda.synchronize()
+            ref = nms_mod.nms_fixpoint_torch(boxes, alive, t)
+            if not torch.equal(keep, ref):
+                bad = int((keep != ref).sum())
+                fail(f"nms_fixpoint kernel != plain on {name} B={B} K={K}: {bad} entries")
+            log(f"[kernel] nms_fixpoint {name:12s} B={B} K={K}: bit-exact "
+                f"({int(keep.sum())} kept)")
+
+    # -- 3. detect at full width ---------------------------------------------
+    cfg = get_default_config()
+    cfg["detector"]["pose_head"] = True
+    B, src_h, src_w = 128, 240, 320
+    pipe = DetectionPipeline(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    host_frames = [rng.integers(0, 255, (B, src_h, src_w, 3)).astype(np.uint8) for _ in range(4)]
+    dev_frames = [torch.from_numpy(f).to(dev) for f in host_frames]
+    for f in dev_frames[:2]:  # warm-up (cuDNN algorithm choice, kernel build/load)
+        pipe.detect_frames_async(f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    kernel_fn.launches = 0
+    t0 = time.perf_counter()
+    outs = [pipe.detect_frames_async(dev_frames[i % 4]) for i in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    detect_launches = kernel_fn.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host = pipe.fetch_detections(outs[-1])
+    if not all(np.isfinite(h).all() for h in host) or host[4].shape != (B, 128, 17, 3):
+        fail("detect outputs are not finite or have the wrong shape")
+    t0 = time.perf_counter()
+    for i in range(3):
+        pipe.detect_frames(host_frames[i])
+    e2e_ms = (time.perf_counter() - t0) / 3 * 1e3
+    detect = {"ms_per_batch": dt / iters * 1e3, "frames_per_s": B * iters / dt,
+              "host_to_host_ms_per_batch": e2e_ms, "peak_mem_gb": peak_gb,
+              "nms_launches": detect_launches, "batch": B, "iters": iters}
+    log(f"[detect] v5m 640 bf16 pose B={B}: {detect['ms_per_batch']:.2f} ms/batch "
+        f"{detect['frames_per_s']:.1f} frames/s (device-resident frames), "
+        f"{e2e_ms:.2f} ms/batch host->host, peak {peak_gb:.2f} GB, "
+        f"nms launches {detect_launches}")
+    if detect_launches != iters:
+        fail(f"detect phase launched the NMS kernel {detect_launches} times, expected {iters}")
+
+    # the main path's NMS inputs: kernel vs plain, times and bound
+    S = pipe.model.img_size
+    with torch.no_grad():
+        images = letterbox_batch(dev_frames[0], size=S, dtype=pipe.model.dtype)
+        boxes_a, scores_a, _ = decode_predictions(pipe.model(images), S, 17)
+    _ts, _ti, cand, alive_b = nms_mod.prefilter(boxes_a, scores_a, pipe.conf, 256)
+    cand, alive_f = cand.contiguous(), alive_b.to(torch.float32)
+    keep = kernel_fn(cand, alive_f, pipe.iou)
+    torch.cuda.synchronize()
+    ref = nms_mod.nms_fixpoint_torch(cand, alive_f, pipe.iou)
+    if not torch.equal(keep, ref):
+        fail("nms_fixpoint kernel != plain on the main path's candidates")
+    max_abs_err = float((keep.to(torch.float32) - ref.to(torch.float32)).abs().max())
+    saved = kernel_fn.launches
+    nms_ms = cuda_ms(lambda: kernel_fn(cand, alive_f, pipe.iou), iters=200, warmup=20)
+    plain_ms = cuda_ms(lambda: nms_mod.nms_fixpoint_torch(cand, alive_f, pipe.iou), iters=20)
+    lib_ms = library_nms_ms(cand, alive_f, pipe.iou)
+    bound_ms, bound_by, nbytes, nops, steps = nms_bound(cand, alive_f, pipe.iou)
+    n_suppressed = int((alive_b & ~keep).sum())
+    log(f"[kernel] nms_fixpoint main-path B={cand.shape[0]} K={cand.shape[1]}: "
+        f"{nms_ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us, library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}), bound {bound_ms * 1e3:.3f} us "
+        f"by {bound_by} ({nbytes} B, {nops} ops; Jacobi steps max {int(steps.max())} "
+        f"mean {float(steps.float().mean()):.2f}; {n_suppressed} candidates suppressed)")
+    # random weights suppress little or nothing on the main path, so the
+    # kernel is also timed where the fixpoint loop has to iterate
+    deep_cases = []
+    for name in ("dense", "chain"):
+        boxes, alive, t = cases_256[name]
+        c_ms = cuda_ms(lambda: kernel_fn(boxes, alive, t), iters=100, warmup=10)
+        c_plain = cuda_ms(lambda: nms_mod.nms_fixpoint_torch(boxes, alive, t), iters=5, warmup=1)
+        c_bound, c_by, _nb, _no, c_steps = nms_bound(boxes, alive, t)
+        deep_cases.append({"case": name, "B": 128, "K": 256, "ms": c_ms, "plain_ms": c_plain,
+                           "bound_ms": c_bound, "bound_by": c_by,
+                           "jacobi_steps_max": int(c_steps.max()),
+                           "jacobi_steps_mean": float(c_steps.float().mean())})
+        log(f"[kernel] nms_fixpoint {name} B=128 K=256: {c_ms * 1e3:.1f} us (plain "
+            f"{c_plain * 1e3:.1f} us), bound {c_bound * 1e3:.3f} us by {c_by}; Jacobi steps "
+            f"max {int(c_steps.max())} mean {float(c_steps.float().mean()):.2f}")
+    kernel_fn.launches = saved
+
+    # f32 at full width: card vs CPU, same weights
+    cfg32 = get_default_config()
+    cfg32["detector"].update(pose_head=True, dtype="float32")
+    p_gpu = DetectionPipeline(cfg32, device=dev, seed=1)
+    sd = {k: v.cpu() for k, v in p_gpu.model.state_dict().items()}
+    p_cpu = DetectionPipeline(cfg32, device=cpu, state_dict=sd)
+    small = host_frames[1][:2]
+    with torch.no_grad():
+        lb_cpu = letterbox_batch(torch.from_numpy(small), size=S, dtype=torch.float32)
+        raw_cpu = p_cpu.model(lb_cpu)
+        raw_gpu = p_gpu.model(lb_cpu.to(dev))
+        set_tf32(True)
+        raw_tf32 = p_gpu.model(lb_cpu.to(dev))
+        set_tf32(False)
+    worst = worst_tf32 = 0.0
+    for name in ("p3", "p4", "p5"):
+        r, g = raw_cpu[name], raw_gpu[name].cpu()
+        err = float((g - r).abs().max() / r.abs().max())
+        err_tf32 = float((raw_tf32[name].cpu() - r).abs().max() / r.abs().max())
+        worst, worst_tf32 = max(worst, err), max(worst_tf32, err_tf32)
+        log(f"[detect] f32 raw {name} {tuple(r.shape)}: max|card-cpu|/max|cpu| = {err:.2e} "
+            f"(with TF32 {err_tf32:.2e})")
+    if worst > TOL_RAW_F32:
+        fail(f"f32 head maps card vs CPU differ by {worst:.2e} > {TOL_RAW_F32}")
+    if worst_tf32 <= TOL_RAW_F32:
+        fail(f"the head-map limit {TOL_RAW_F32} passes TF32 ({worst_tf32:.2e})")
+    b_cpu, s_cpu, _ = decode_predictions(raw_cpu, S, 17)
+    ref_cpu = nms_mod.batched_nms(b_cpu, s_cpu, p_cpu.conf, p_cpu.iou, p_cpu.max_det)
+    got_gpu = nms_mod.batched_nms(b_cpu.to(dev), s_cpu.to(dev), p_cpu.conf, p_cpu.iou,
+                                  p_cpu.max_det)
+    for name, r, g in zip(("boxes", "scores", "valid", "anchor_idx"), ref_cpu, got_gpu):
+        if not torch.equal(g.cpu(), r):
+            fail(f"batched_nms on the card != CPU on the same decoded inputs ({name})")
+    log(f"[detect] batched_nms card == CPU on the f32 decode "
+        f"({int(ref_cpu[2].sum())} detections in 2 frames)")
+    del p_gpu, p_cpu, raw_gpu, pipe, outs
+    torch.cuda.empty_cache()
+
+    # -- 4. score -----------------------------------------------------------
+    scfg = get_default_config()
+    s_gpu = build_shopformer(scfg, device=dev, seed=2)
+    s_cpu = build_shopformer(scfg, device=cpu, state_dict={k: v.cpu() for k, v in
+                                                          s_gpu.state_dict().items()})
+    windows = np.random.default_rng(3).normal(size=(1024, 12, 18, 2)).astype(np.float32)
+    sc_gpu = ShopformerScorer(s_gpu, scfg, device=dev)
+    got = sc_gpu.score(windows, batch_size=1024)
+    ref = ShopformerScorer(s_cpu, scfg, device=cpu).score(windows, batch_size=1024)
+    rel = max_rel(got, ref)
+    set_tf32(True)
+    rel_tf32 = max_rel(sc_gpu.score(windows, batch_size=1024), ref)
+    set_tf32(False)
+    if got.shape != (1024,) or not np.isfinite(got).all() or rel > TOL_SCORE_F32:
+        fail(f"Shopformer card vs CPU: max rel err {rel:.2e} > {TOL_SCORE_F32}")
+    if rel_tf32 <= TOL_SCORE_F32:
+        fail(f"the score limit {TOL_SCORE_F32} passes TF32 ({rel_tf32:.2e})")
+    xw = torch.from_numpy(windows).to(dev)
+    score_ms = cuda_ms(lambda: s_gpu.compute_anomaly_score(xw), iters=20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sc_gpu.score(windows, batch_size=1024)
+    score_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    score = {"windows": 1024, "ms_per_batch": score_ms, "windows_per_s": 1024 / score_ms * 1e3,
+             "host_to_host_ms": score_host_ms, "max_rel_err_vs_cpu": rel,
+             "max_rel_err_vs_cpu_tf32": rel_tf32}
+    log(f"[score] 1024 windows f32: {score_ms:.3f} ms on device ({score['windows_per_s']:.0f} "
+        f"windows/s), {score_host_ms:.2f} ms host->host; card vs CPU max rel err {rel:.2e} "
+        f"(with TF32 {rel_tf32:.2e})")
+
+    # -- 5. stream ------------------------------------------------------------
+    stcfg = get_default_config()
+    scorer = ShopformerScorer(build_shopformer(stcfg, device=dev, seed=4), stcfg, device=dev)
+    spipe = StreamingPipeline(stcfg, scorer, device=dev, seed=5)
+    vids = {f"s{i}": render_frames(48, 320, 240, seed=i) for i in range(4)}
+    # warm-up on a separate reader, then the measured pass
+    spipe.run_stream(RoundRobinReader(spipe, [ArraySource("w", vids["s0"][:32])], (240, 320), 4))
+    torch.cuda.synchronize()
+    spipe._stage_seconds = {"read": 0.0, "detect": 0.0, "track": 0.0, "score": 0.0}
+    kernel_fn.launches = 0
+    reader = RoundRobinReader(spipe, [ArraySource(n, f) for n, f in vids.items()], (240, 320), 4)
+    t0 = time.perf_counter()
+    events = spipe.run_stream(reader)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stream_launches = kernel_fn.launches
+    stream = {"streams": 4, "frames": reader.n_frames, "events": len(events), "seconds": dt,
+              "frames_per_s": reader.n_frames / dt, "nms_launches": stream_launches,
+              "stage_seconds": dict(spipe._stage_seconds)}
+    log(f"[stream] v5m 640 bf16 pose, 4 streams x 48 frames: {len(events)} events, "
+        f"{stream['frames_per_s']:.1f} frames/s, stages "
+        f"{json.dumps({k: round(v, 4) for k, v in stream['stage_seconds'].items()})}, "
+        f"nms launches {stream_launches}")
+    if not events or not all(np.isfinite(e.score) for e in events):
+        fail("the full-width stream produced no (finite) events")
+    if stream_launches == 0:
+        fail("the stream phase never launched the NMS kernel")
+
+    # test-sized fixture: card vs CPU from the same in-memory frames, with the
+    # score gap split into the pose windows' part and the scorer's part
+    def fixture_run(device):
+        c = get_default_config()
+        c["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, batch_size=4,
+                             conf_threshold=0.0, max_detections=2, dtype="float32",
+                             pose_head=True)
+        c["model"]["hidden_channels"] = 8
+        c["data"]["stride"] = 6
+        sm = build_shopformer(c, device=device, seed=6)
+        p = StreamingPipeline(c, ShopformerScorer(sm, c, device=device), device=device, seed=8)
+        raw, prepared = [], []
+        prepare = p._prepare_window
+
+        def recording_prepare(window):  # every scored window, in dispatch order
+            raw.append(np.array(window, np.float32))
+            prepared.append(prepare(window))
+            return prepared[-1]
+
+        p._prepare_window = recording_prepare
+        srcs = [ArraySource(f"v{i}.mp4", render_frames(40, 160, 128, seed=i)) for i in range(6)]
+        events = p.run_stream(RoundRobinReader(p, srcs, (128, 160), 4))
+        return events, np.stack(raw), np.stack(prepared), p.scorer
+
+    def ekey(e):
+        return (e.video, e.track_id, e.frame_end)
+
+    def key_mismatch(ev_a, ev_b) -> str:
+        only_a = sorted(set(map(ekey, ev_a)) - set(map(ekey, ev_b)))
+        only_b = sorted(set(map(ekey, ev_b)) - set(map(ekey, ev_a)))
+        if not only_a and not only_b:
+            return ""
+        first = min(only_a + only_b, key=lambda k: (k[2], k[0], k[1]))
+        near = [abs(a.score - b.score) for a, b in zip(ev_a, ev_b)
+                if ekey(a) == ekey(b) and a.frame_end <= first[2]]
+        return (f"first at frame {first[2]} {first}; {len(only_a)} only on the card, "
+                f"{len(only_b)} only on the CPU; max score gap before it "
+                f"{max(near) if near else float('nan'):.3e}")
+
+    ev_gpu, raw_gpu_w, prep_gpu, scorer_gpu = fixture_run(dev)
+    ev_cpu, raw_cpu_w, prep_cpu, scorer_cpu = fixture_run(cpu)
+    set_tf32(True)
+    ev_tf32, raw_tf32_w, _prep_tf32, _ = fixture_run(dev)
+    set_tf32(False)
+    bad = key_mismatch(ev_gpu, ev_cpu)
+    if bad:
+        fail(f"fixture events differ card vs CPU: {bad}")
+    if raw_gpu_w.shape != raw_cpu_w.shape:
+        fail(f"fixture windows differ in number card vs CPU: {raw_gpu_w.shape} {raw_cpu_w.shape}")
+    cpu_scores = {ekey(e): e.score for e in ev_cpu}
+    gap = max(abs(e.score - cpu_scores[ekey(e)]) for e in ev_gpu) if ev_gpu else 0.0
+    score_max = max(abs(e.score) for e in ev_cpu) if ev_cpu else 0.0
+    kpt_rel = float(np.abs(raw_gpu_w - raw_cpu_w).max() / np.abs(raw_cpu_w).max())
+    prep_gap = float(np.abs(prep_gpu - prep_cpu).max())
+    # the scorer on the CPU's windows, card vs CPU; then the card's scorer on
+    # the card's windows against the CPU's windows
+    s_card_on_cpu = scorer_gpu.score(prep_cpu)
+    scorer_rel = max_rel(s_card_on_cpu, scorer_cpu.score(prep_cpu))
+    window_part = float(np.abs(scorer_gpu.score(prep_gpu) - s_card_on_cpu).max())
+    extent = min(normalization_extent(w) for w in raw_cpu_w)
+    tf32_keys = key_mismatch(ev_tf32, ev_cpu)
+    kpt_rel_tf32 = (float(np.abs(raw_tf32_w - raw_cpu_w).max() / np.abs(raw_cpu_w).max())
+                    if raw_tf32_w.shape == raw_cpu_w.shape else float("inf"))
+    fixture = {"events": len(ev_gpu), "windows": int(raw_cpu_w.shape[0]),
+               "max_score_gap": gap, "max_abs_score": score_max,
+               "kpt_rel_gap": kpt_rel, "normalized_window_gap": prep_gap,
+               "scorer_rel_gap_same_windows": scorer_rel, "score_gap_from_windows": window_part,
+               "min_normalization_extent_px": extent,
+               "kpt_rel_gap_tf32": kpt_rel_tf32, "tf32_keys_differ": bool(tf32_keys)}
+    log(f"[stream] fixture img64 f32: {len(ev_gpu)} events, keys card == CPU, max score gap "
+        f"{gap:.2e} (largest |score| {score_max:.3e}); keypoint windows max|card-cpu|/max|cpu| "
+        f"{kpt_rel:.2e}, normalized windows max gap {prep_gap:.2e} (smallest normalization "
+        f"extent {extent:.3e} px); scorer on the same windows rel gap {scorer_rel:.2e}; "
+        f"score gap from the windows alone {window_part:.2e}")
+    log(f"[stream] fixture with TF32 (read only): keypoint windows rel gap {kpt_rel_tf32:.2e}; "
+        f"event keys {'differ: ' + tf32_keys if tf32_keys else 'equal'}")
+    if len(ev_gpu) <= 20:
+        fail(f"fixture: only {len(ev_gpu)} events")
+    if kpt_rel > TOL_KPT_F32:
+        fail(f"fixture keypoint windows card vs CPU differ by {kpt_rel:.2e} > {TOL_KPT_F32}")
+    if scorer_rel > TOL_SCORE_F32:
+        fail(f"fixture scorer card vs CPU on the same windows: {scorer_rel:.2e} > {TOL_SCORE_F32}")
+    if not np.isfinite(gap) or gap > TOL_FIXTURE_SCORE * score_max:
+        fail(f"fixture event scores card vs CPU differ by {gap:.2e} > "
+             f"{TOL_FIXTURE_SCORE} x {score_max:.3e}")
+
+    # -- 6. phase summary, kernel list and result ------------------------------
+    print(json.dumps({"card": card, "detect": detect, "score": score, "stream": stream,
+                      "fixture": fixture, "seconds": time.perf_counter() - t_start}), flush=True)
+    # launches: the stream phase's count (the whole main path, detect to score)
+    print(json.dumps({"kernels": [{
+        "name": "nms_fixpoint", "route": "cuda",
+        "source": "cvsd_tpu_torch/csrc/nms_fixpoint.cu",
+        "replaces": "cvsd_tpu/ops/nms.py:248",
+        "launches": stream_launches, "max_abs_err": max_abs_err,
+        "ms": nms_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms, "shape": {"B": int(cand.shape[0]), "K": int(cand.shape[1])},
+        "suppressed_on_main_path": n_suppressed, "deep_cases": deep_cases,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

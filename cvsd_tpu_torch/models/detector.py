@@ -1,0 +1,293 @@
+"""Person detector: CSP backbone + SPPF + PAN neck + decoupled anchor-free
+head (3 scales, strides 8/16/32) with the optional 17-keypoint pose branch
+(PyTorch port of ``cvsd_tpu/models/detector.py``).
+
+Submodules carry the flax auto-names (``Backbone_0``, ``C3_2``,
+``ConvBNAct_1``, ``Conv_0``, ``BatchNorm_0``, ...) so flax weights load
+through ``utils/weights.py`` by a mechanical key map. Images are NHWC at the
+public functions; the convolutions run NCHW (``channels_last`` on the card).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cvsd_tpu_torch.ops.nms import batched_nms
+from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, torch_dtype
+
+STRIDES = (8, 16, 32)
+
+
+def _round_ch(c: float, divisor: int = 8) -> int:
+    return max(divisor, int(math.ceil(c / divisor) * divisor))
+
+
+class _Named(nn.Module):
+    """Registers children under explicit (flax) names, in call order."""
+
+    def _add(self, name: str, module: nn.Module) -> nn.Module:
+        self.add_module(name, module)
+        return module
+
+
+class ConvBNAct(nn.Module):
+    """Conv (no bias) -> BatchNorm (eps 1e-3, ultralytics') -> SiLU."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        p = (kernel - 1) // 2  # the stem's k=6, s=2 gets p=2
+        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, p, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, features: int, shortcut: bool = True):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(cin, features, 1)
+        self.ConvBNAct_1 = ConvBNAct(features, features, 3)
+        self.residual = shortcut and cin == features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.ConvBNAct_1(self.ConvBNAct_0(x))
+        return x + y if self.residual else y
+
+
+class C3(_Named):
+    """CSP block with n bottlenecks."""
+
+    def __init__(self, cin: int, features: int, n: int = 1, shortcut: bool = True):
+        super().__init__()
+        c_h = features // 2
+        self.n = n
+        self._add("ConvBNAct_0", ConvBNAct(cin, c_h, 1))
+        self._add("ConvBNAct_1", ConvBNAct(cin, c_h, 1))
+        for i in range(n):
+            self._add(f"Bottleneck_{i}", Bottleneck(c_h, c_h, shortcut))
+        self._add("ConvBNAct_2", ConvBNAct(2 * c_h, features, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.ConvBNAct_0(x)
+        b = self.ConvBNAct_1(x)
+        for i in range(self.n):
+            a = getattr(self, f"Bottleneck_{i}")(a)
+        return self.ConvBNAct_2(torch.cat([a, b], 1))
+
+
+class SPPF(nn.Module):
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        c_h = features // 2
+        self.ConvBNAct_0 = ConvBNAct(cin, c_h, 1)
+        self.ConvBNAct_1 = ConvBNAct(4 * c_h, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ConvBNAct_0(x)
+        p1 = F.max_pool2d(x, 5, 1, 2)  # "SAME" 5x5 / stride 1
+        p2 = F.max_pool2d(p1, 5, 1, 2)
+        p3 = F.max_pool2d(p2, 5, 1, 2)
+        return self.ConvBNAct_1(torch.cat([x, p1, p2, p3], 1))
+
+
+def _widths(width_mult: float, depth_mult: float, divisor: int):
+    w = lambda c: _round_ch(c * width_mult, divisor)  # noqa: E731
+    d = lambda n: max(1, round(n * depth_mult))  # noqa: E731
+    return w, d
+
+
+class Backbone(nn.Module):
+    def __init__(self, width_mult: float = 0.75, depth_mult: float = 0.67, channel_divisor: int = 8):
+        super().__init__()
+        w, d = _widths(width_mult, depth_mult, channel_divisor)
+        self.ConvBNAct_0 = ConvBNAct(3, w(64), 6, 2)          # /2
+        self.ConvBNAct_1 = ConvBNAct(w(64), w(128), 3, 2)     # /4
+        self.C3_0 = C3(w(128), w(128), d(3))
+        self.ConvBNAct_2 = ConvBNAct(w(128), w(256), 3, 2)    # /8
+        self.C3_1 = C3(w(256), w(256), d(6))
+        self.ConvBNAct_3 = ConvBNAct(w(256), w(512), 3, 2)    # /16
+        self.C3_2 = C3(w(512), w(512), d(9))
+        self.ConvBNAct_4 = ConvBNAct(w(512), w(1024), 3, 2)   # /32
+        self.C3_3 = C3(w(1024), w(1024), d(3))
+        self.SPPF_0 = SPPF(w(1024), w(1024))
+
+    def forward(self, x):
+        x = self.C3_0(self.ConvBNAct_1(self.ConvBNAct_0(x)))
+        p3 = x = self.C3_1(self.ConvBNAct_2(x))
+        p4 = x = self.C3_2(self.ConvBNAct_3(x))
+        x = self.C3_3(self.ConvBNAct_4(x))
+        return p3, p4, self.SPPF_0(x)
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsample (NCHW)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class PANNeck(nn.Module):
+    def __init__(self, width_mult: float = 0.75, depth_mult: float = 0.67, channel_divisor: int = 8):
+        super().__init__()
+        w, d = _widths(width_mult, depth_mult, channel_divisor)
+        self.ConvBNAct_0 = ConvBNAct(w(1024), w(512), 1)
+        self.C3_0 = C3(2 * w(512), w(512), d(3), shortcut=False)
+        self.ConvBNAct_1 = ConvBNAct(w(512), w(256), 1)
+        self.C3_1 = C3(2 * w(256), w(256), d(3), shortcut=False)
+        self.ConvBNAct_2 = ConvBNAct(w(256), w(256), 3, 2)
+        self.C3_2 = C3(2 * w(256), w(512), d(3), shortcut=False)
+        self.ConvBNAct_3 = ConvBNAct(w(512), w(512), 3, 2)
+        self.C3_3 = C3(2 * w(512), w(1024), d(3), shortcut=False)
+
+    def forward(self, feats):
+        p3, p4, p5 = feats
+        t5 = self.ConvBNAct_0(p5)
+        x = self.C3_0(torch.cat([_upsample2(t5), p4], 1))
+        t4 = self.ConvBNAct_1(x)
+        n3 = self.C3_1(torch.cat([_upsample2(t4), p3], 1))
+        n4 = self.C3_2(torch.cat([self.ConvBNAct_2(n3), t4], 1))
+        n5 = self.C3_3(torch.cat([self.ConvBNAct_3(n4), t5], 1))
+        return n3, n4, n5
+
+
+class DetectHead(nn.Module):
+    """Decoupled anchor-free head: box (4) + objectness (1) [+ keypoints 17x3]."""
+
+    def __init__(self, c: int, num_keypoints: int = 0):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(c, c, 3)
+        self.Conv_0 = nn.Conv2d(c, 4, 1)
+        self.ConvBNAct_1 = ConvBNAct(c, c, 3)
+        self.Conv_1 = nn.Conv2d(c, 1, 1)
+        self.num_keypoints = num_keypoints
+        if num_keypoints:
+            self.ConvBNAct_2 = ConvBNAct(c, c, 3)
+            self.Conv_2 = nn.Conv2d(c, num_keypoints * 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [self.Conv_0(self.ConvBNAct_0(x)), self.Conv_1(self.ConvBNAct_1(x))]
+        if self.num_keypoints:
+            outs.append(self.Conv_2(self.ConvBNAct_2(x)))
+        return torch.cat(outs, 1)  # (B, 5[+3K], H, W)
+
+
+class PersonDetector(nn.Module):
+    """Backbone -> PAN -> anchor-free heads at strides 8/16/32.
+
+    forward(images (B, S, S, 3) in [0, 1], NHWC) -> raw per-level maps
+    {'p3', 'p4', 'p5'}, each (B, H, W, 5[+3K]) NHWC like the reference."""
+
+    def __init__(self, img_size: int = 640, width_mult: float = 0.75, depth_mult: float = 0.67,
+                 num_keypoints: int = 0, channel_divisor: int = 8,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.img_size = img_size
+        self.num_keypoints = num_keypoints
+        self.dtype = dtype
+        self.head_variant = "anchor_free"
+        w, _ = _widths(width_mult, depth_mult, channel_divisor)
+        self.Backbone_0 = Backbone(width_mult, depth_mult, channel_divisor)
+        self.PANNeck_0 = PANNeck(width_mult, depth_mult, channel_divisor)
+        for i, c in enumerate((w(256), w(512), w(1024))):
+            self.add_module(f"DetectHead_{i}", DetectHead(c, num_keypoints))
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last)
+        n3, n4, n5 = self.PANNeck_0(self.Backbone_0(x))
+        heads = (self.DetectHead_0, self.DetectHead_1, self.DetectHead_2)
+        return {name: h(f).permute(0, 2, 3, 1)
+                for name, h, f in zip(("p3", "p4", "p5"), heads, (n3, n4, n5))}
+
+
+def decode_predictions(
+    raw: Dict[str, torch.Tensor], img_size: int = 640, num_keypoints: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Raw head maps -> flat (boxes_xyxy (B,A,4), scores (B,A), kpts (B,A,K,3))
+    in letterboxed-pixel coordinates; anchors in row-major (H, W) order per
+    level, levels p3, p4, p5 (A = 8400 at 640)."""
+    boxes_all, scores_all, kpts_all = [], [], []
+    for name, stride in zip(("p3", "p4", "p5"), STRIDES):
+        x = raw[name].to(torch.float32)
+        B, H, W, _ = x.shape
+        gy = torch.arange(H, dtype=torch.float32, device=x.device)[:, None].expand(H, W)
+        gx = torch.arange(W, dtype=torch.float32, device=x.device)[None, :].expand(H, W)
+        tx, ty, tw, th = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+        cx = (gx + torch.sigmoid(tx)) * stride
+        cy = (gy + torch.sigmoid(ty)) * stride
+        w = torch.exp(tw.clamp(-4.0, 4.0)) * stride
+        h = torch.exp(th.clamp(-4.0, 4.0)) * stride
+        boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+        boxes_all.append(boxes.reshape(B, H * W, 4))
+        scores_all.append(torch.sigmoid(x[..., 4]).reshape(B, H * W))
+        if num_keypoints:
+            k = x[..., 5 : 5 + num_keypoints * 3].reshape(B, H, W, num_keypoints, 3)
+            kx = (gx[..., None] + k[..., 0] * 2.0) * stride
+            ky = (gy[..., None] + k[..., 1] * 2.0) * stride
+            kc = torch.sigmoid(k[..., 2])
+            kpts_all.append(torch.stack([kx, ky, kc], -1).reshape(B, H * W, num_keypoints, 3))
+    boxes = torch.cat(boxes_all, 1)
+    scores = torch.cat(scores_all, 1)
+    kpts = torch.cat(kpts_all, 1) if kpts_all else None
+    return boxes, scores, kpts
+
+
+def make_detect_fn(model: PersonDetector, conf_thresh: float = 0.25, iou_thresh: float = 0.45,
+                   max_detections: int = 128, tta_flip: bool = False):
+    """images (B, S, S, 3) -> (boxes (B,M,4) xyxy, scores (B,M), valid (B,M)
+    [, kpts (B,M,17,3)]): forward, decode, top-K, fixpoint NMS, keypoint gather."""
+    if tta_flip:
+        raise NotImplementedError(
+            "detector.tta_flip is not ported yet: ROADMAP.md, deferred items")
+
+    @torch.no_grad()
+    def detect(images: torch.Tensor):
+        raw = model(images)
+        boxes, scores, kpts = decode_predictions(raw, model.img_size, model.num_keypoints)
+        out_boxes, out_scores, valid, anchor_idx = batched_nms(
+            boxes, scores, conf_thresh, iou_thresh, max_detections)
+        if kpts is None:
+            return out_boxes, out_scores, valid
+        idx = anchor_idx.to(torch.int64)[..., None, None].expand(-1, -1, *kpts.shape[2:])
+        return out_boxes, out_scores, valid, torch.gather(kpts, 1, idx)
+
+    return detect
+
+
+def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int = 0,
+                   state_dict: Optional[Dict[str, torch.Tensor]] = None) -> PersonDetector:
+    """PersonDetector from ``config['detector']`` on ``device`` (default: the
+    CUDA card, raising without one), eval mode, in the configured dtype.
+    Weights from ``state_dict`` (see utils/weights.py) or seeded random."""
+    from cvsd_tpu_torch.utils.weights import init_module
+
+    d = config.get("detector", {})
+    dev = resolve_device(device)
+    if str(d.get("head_variant", "anchor_free")) != "anchor_free":
+        raise NotImplementedError(
+            "detector.head_variant 'v8dfl' is not ported yet: ROADMAP.md, deferred items")
+    if d.get("quantized"):
+        raise NotImplementedError(
+            "detector.quantized (int8) is not ported yet: ROADMAP.md module queue, item 13")
+    dtype = torch_dtype(d.get("dtype", "bfloat16"))
+    model = PersonDetector(
+        img_size=int(d.get("img_size", 640)),
+        width_mult=float(d.get("width_mult", 0.75)),
+        depth_mult=float(d.get("depth_mult", 0.67)),
+        num_keypoints=int(d.get("num_keypoints", 17)) if d.get("pose_head") else 0,
+        channel_divisor=int(d.get("channel_divisor", 8)),
+        dtype=dtype,
+    )
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        init_module(model, seed)
+    model = model.to(device=dev, dtype=dtype).eval()
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model

@@ -1,0 +1,94 @@
+"""The port stands alone: no module of cvsd_tpu_torch, and nothing
+chip_smoke.py imports, loads jax, flax or cvsd_tpu; and the entry points'
+default device (the CUDA card) raises when there is none, with no silent
+CPU fallback. Checked in fresh subprocesses: this test process has JAX
+loaded by conftest.py."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
+    r = _run("""
+        import ast, importlib, importlib.util, pkgutil, sys
+        import cvsd_tpu_torch
+        for m in pkgutil.walk_packages(cvsd_tpu_torch.__path__, "cvsd_tpu_torch."):
+            importlib.import_module(m.name)
+        names = []
+        for node in ast.walk(ast.parse(open("chip_smoke.py").read())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.append(node.module)
+        for name in names:
+            # an optional yardstick (torchvision) that is not installed is skipped
+            if importlib.util.find_spec(name.split(".")[0]) is not None:
+                importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cvsd_tpu"))
+        print("BAD", bad)
+        n = sum(1 for m in sys.modules if m.startswith("cvsd_tpu_torch."))
+        print("PORT_MODULES", n)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 25
+
+
+def test_default_device_raises_without_cuda():
+    r = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from cvsd_tpu_torch.config import get_default_config
+        from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
+        from cvsd_tpu_torch.models.detector import build_detector
+        from cvsd_tpu_torch.models.shopformer import build_shopformer
+        from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+        from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
+        cfg = get_default_config()
+        cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
+        cpu_model = build_shopformer(cfg, device="cpu")
+        scorer = ShopformerScorer(cpu_model, cfg, device="cpu")
+        calls = {
+            "build_detector": lambda: build_detector(cfg),
+            "build_shopformer": lambda: build_shopformer(cfg),
+            "DetectionPipeline": lambda: DetectionPipeline(cfg),
+            "ShopformerScorer": lambda: ShopformerScorer(cpu_model, cfg),
+            "StreamingPipeline": lambda: StreamingPipeline(cfg, scorer),
+        }
+        for name, fn in calls.items():
+            try:
+                fn()
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), (name, e)
+                print("RAISED", name)
+            else:
+                print("FELL_BACK", name)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "FELL_BACK" not in r.stdout, r.stdout
+    assert r.stdout.count("RAISED") == 5, r.stdout
+
+
+def test_nms_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never runs the plain version: a CPU tensor is refused."""
+    import pytest
+    import torch
+
+    from cvsd_tpu_torch.ops.nms import nms_fixpoint_cuda
+
+    before = nms_fixpoint_cuda.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        nms_fixpoint_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4))
+    assert nms_fixpoint_cuda.launches == before

@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``gpu``; without a card every test skips (a CUDA kernel has no CPU
+mode). Run on a machine with an H100 and the CUDA toolkit (``--noconftest``:
+tests/conftest.py sets up JAX, which such a machine need not have):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    # decided here, not at import: every xdist worker must collect the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _boxes(rng, B, K, lo=10.0, hi=600.0):
+    cxy = rng.uniform(lo, hi, (B, K, 2))
+    wh = rng.uniform(8, 120, (B, K, 2))
+    return np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,K", [(128, 256), (3, 84), (2, 1024), (1, 1)])
+def test_nms_fixpoint_kernel_bit_exact(cuda, B, K):
+    from cvsd_tpu_torch.ops.nms import nms_fixpoint_cuda, nms_fixpoint_torch
+
+    rng = np.random.default_rng(B * 1000 + K)
+    boxes = torch.from_numpy(_boxes(rng, B, K)).to(cuda)
+    alive = torch.from_numpy((rng.uniform(size=(B, K)) > 0.1).astype(np.float32)).to(cuda)
+    before = nms_fixpoint_cuda.launches
+    keep = nms_fixpoint_cuda(boxes, alive, 0.45)
+    torch.cuda.synchronize()
+    assert nms_fixpoint_cuda.launches == before + 1
+    ref = nms_fixpoint_torch(boxes, alive, 0.45)
+    assert torch.equal(keep, ref)
+
+
+def test_nms_fixpoint_kernel_chain(cuda):
+    from cvsd_tpu_torch.ops.nms import nms_fixpoint_cuda
+
+    K = 256
+    boxes = torch.zeros(1, K, 4)
+    for i in range(K):
+        boxes[0, i] = torch.tensor([i * 6.0, 0.0, i * 6.0 + 10.0, 10.0])
+    keep = nms_fixpoint_cuda(boxes.to(cuda), torch.ones(1, K, device=cuda), 0.2)
+    assert keep.cpu()[0].tolist() == [i % 2 == 0 for i in range(K)]
+
+
+def test_nms_fixpoint_kernel_rejects_bad_inputs(cuda):
+    from cvsd_tpu_torch.ops.nms import nms_fixpoint_cuda
+
+    with pytest.raises(ValueError, match="K <= 1024"):
+        nms_fixpoint_cuda(torch.zeros(1, 1025, 4, device=cuda), torch.ones(1, 1025, device=cuda))
+    with pytest.raises(TypeError):
+        nms_fixpoint_cuda(torch.zeros(1, 8, 4, device=cuda, dtype=torch.float64),
+                          torch.ones(1, 8, device=cuda))
+    with pytest.raises(ValueError):
+        nms_fixpoint_cuda(torch.zeros(1, 8, 4, device=cuda)[:, ::2],
+                          torch.ones(1, 4, device=cuda))
