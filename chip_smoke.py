@@ -6,27 +6,40 @@
 Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
      kernels built by nvcc from csrc/ (registers / shared memory printed)
-  2. kernel vs plain: the NMS fixpoint kernel bit-exact against its plain
-     PyTorch version at B=128, K=256 and at ragged K=84
+  2. kernel vs plain: the three NMS kernels (fixpoint, sequential, grouped
+     sequential) bit-exact against their plain PyTorch versions on six cases
+     at B=128, K=256 and at ragged K=84, the sequential pair also at B=5 with
+     a ragged last group of 8; all three give one mask
   3. detect: DetectionPipeline at full width (v5m scale, 640 canvas, bf16,
      pose head) on B=128 320x240 uint8 frames; the kernel timed on the main
      path's candidates and on two cases that need many fixpoint steps; then
      float32 at full width on the card and on the CPU with the same weights
+  3b. detect, slice 2 (SLICE2: v8dfl head, flip TTA, top-down pose,
+     pallas_seq) on the same frames; both sequential kernels timed on its
+     candidates and on the deep cases; the batch's time split by layer; then
+     float32 card vs CPU: the v8dfl head maps, batched_nms('pallas_seq') and
+     the top-down keypoints on the same boxes
   4. score: ShopformerScorer on 1024 windows, card f32 against CPU f32
   5. stream: StreamingPipeline at full width on in-memory frames through the
      read_batch seam (4 streams x 48 frames); then the test-sized fixture on
      the card and on the CPU, whose event keys must agree and whose score
      gap is split into the keypoint windows' part and the scorer's part
-
-The float32 comparisons are also read with TF32 allowed: the head-map and
-score limits must tell TF32 from float32; the fixture's TF32 reading is only
-printed (its small detector moves the keypoints little either way).
+  5b. stream, slice 2: the same at full width; then the slice-2 fixture,
+     whose event keys must agree, whose events on windows that agree hold
+     their scores, and whose keypoints on the same canvas boxes must agree
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
      then the result line
 
-Kernel launch counts are set to 0 just before the detect and stream phases
-drive the pipeline and read just after; the launches that compare a kernel
-with its plain version are not counted. Bounds are taken against the H100
+The float32 comparisons are also read with TF32 allowed: the head-map,
+heatmap, keypoint-confidence and score limits must tell TF32 from float32;
+the fixture's TF32 reading is only printed (its small detector moves the
+keypoints little either way).
+
+Kernel launch counts are set to 0 just before each detect and stream phase
+drives a pipeline and read just after; the launches that compare a kernel
+with its plain version are not counted. The grouped sequential kernel has no
+entry point (in the reference only a test reaches it), so no phase launches
+it and its count on the main path is 0. Bounds are taken against the H100
 SXM's published peaks (3.35 TB/s, 67 TFLOP/s FP32 outside the tensor cores)
 at its full 700 W power limit.
 """
@@ -56,6 +69,33 @@ TOL_KPT_F32 = 1e-6  # max|card - cpu| / max|cpu| on the fixture's keypoint windo
 # normalize_sequence divides by that spread, so the windows magnify the
 # keypoints' float32 gap about a hundredfold before the scorer sees them.
 TOL_FIXTURE_SCORE = 5e-4
+# slice 2, float32 card vs CPU (PERF.md gives the readings): the v8dfl head
+# maps (~10x the f32 reading); the pose net's heatmap logits on the same crops
+# (~10x); and the top-down keypoints on the same boxes, x and y against the
+# largest coordinate (~10x) and the confidence against the largest confidence.
+# Each is also read with TF32 allowed, and the head-map, heatmap and
+# confidence limits must fail it. The x, y limit cannot: the soft-argmax
+# averages TF32's error down to ~3x the f32 reading, so the heatmap limit
+# catches TF32 in the pose net, and the confidence limit (~3x its f32
+# reading, ~4x below its TF32 one) catches it in the keypoints.
+TOL_RAW_V8_F32 = 5e-5
+TOL_POSE_HEAT_F32 = 2e-5
+TOL_POSE_XY_F32 = 1e-6
+TOL_POSE_CONF_F32 = 4e-6
+# The slice-2 fixture (pose width 8, crop 32): its keypoints on the same
+# canvas boxes card vs CPU, x and y against the largest coordinate (~5x the
+# f32 reading). Its keypoint windows that agree card vs CPU within this limit
+# hold their event scores to TOL_FIXTURE_SCORE; a window that holds a frame
+# where the card kept another anchor's box differs by a whole crop, which no
+# float32 limit bounds (PERF.md gives the readings).
+TOL_FIXTURE2_KPT = 4e-6
+
+# the slice-2 configuration: the defaults with these detector settings
+SLICE2 = dict(head_variant="v8dfl", num_classes=80, reg_max=16, width_mult=0.75,
+              depth_mult=0.67, img_size=640, dtype="bfloat16", pose_head=False,
+              pose_mode="topdown", pose_topdown={"num_keypoints": 17, "width": 32, "crop_size": 64},
+              tta_flip=True, nms_method="pallas_seq", conf_threshold=0.25, iou_threshold=0.45,
+              max_detections=128)
 
 
 def log(msg: str) -> None:
@@ -200,6 +240,71 @@ def library_nms_ms(boxes: torch.Tensor, alive: torch.Tensor, t: float):
     return cuda_ms(lambda: torchvision.ops.batched_nms(flat, scores, idxs, t), iters=20)
 
 
+LIBRARY_NOTE = ("null: no core PyTorch call computes greedy NMS, and torchvision (whose "
+                "batched_nms would be the yardstick) is not installed on this machine")
+
+
+def greedy_pairs(boxes: torch.Tensor, alive: torch.Tensor, keep: torch.Tensor,
+                 t: float) -> int:
+    """The (anchor, candidate) pairs the sequential greedy tests on this data:
+    for each kept anchor i, every j > i still alive at step i. A candidate j
+    is alive from the start until the first kept anchor that suppresses it,
+    which is the last anchor to test it."""
+    from cvsd_tpu_torch.ops.nms import _suppression_matrix
+
+    B, K, _ = boxes.shape
+    idx = torch.arange(K, device=boxes.device)
+    kept = keep > 0.5
+    by_kept = (_suppression_matrix(boxes, t) > 0.5) & kept[:, :, None]  # [b, i, j]
+    first = torch.where(by_kept, idx[None, :, None], K).amin(1)  # (B, K): j's suppressor
+    live = ((alive > 0.5)[:, None, :] & (first[:, None, :] >= idx[None, :, None])
+            & (idx[None, None, :] > idx[None, :, None]) & kept[:, :, None])
+    return int(live.sum())
+
+
+def seq_bound(boxes: torch.Tensor, alive: torch.Tensor, keep: torch.Tensor, t: float):
+    """Least time for the sequential greedy on these inputs: bytes (boxes and
+    alive read once, the float32 keep written once) over HBM bandwidth,
+    against 13 operations (a 12-FLOP IoU and one mask op) for each pair the
+    greedy tests on this data (``greedy_pairs``) over the FP32 peak."""
+    B, K, _ = boxes.shape
+    nbytes = B * K * (16 + 4 + 4)
+    ops = 13 * greedy_pairs(boxes, alive, keep, t)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, bound_by, nbytes, ops
+
+
+def check_seq_kernels(nms_mod, label: str, boxes, alive, t: float, group: int = 8) -> int:
+    """Both sequential kernels bit-exact against their plain versions, and
+    the fixpoint kernel's mask equal to theirs. Returns the kept count."""
+    ref = nms_mod.nms_seq_torch(boxes, alive, t)
+    seq = nms_mod.nms_seq_cuda(boxes, alive, t)
+    multi = nms_mod.nms_seq_multi_cuda(boxes, alive, t, group)
+    fix = nms_mod.nms_fixpoint_cuda(boxes, alive, t)
+    torch.cuda.synchronize()
+    for name, got, want in (("nms_seq", seq, ref),
+                            ("nms_seq_multi", multi, nms_mod.nms_seq_multi_torch(boxes, alive, t,
+                                                                               group))):
+        if not torch.equal(got, want):
+            fail(f"{name} kernel != plain on {label}: {int((got != want).sum())} entries")
+    if not torch.equal(fix, seq > 0.5):
+        fail(f"the fixpoint and sequential kernels give different masks on {label}")
+    return int(seq.sum())
+
+
+COUNTED = ("nms_fixpoint_cuda", "nms_seq_cuda", "nms_seq_multi_cuda")
+
+
+def reset_launches(nms_mod) -> None:
+    for name in COUNTED:
+        getattr(nms_mod, name).launches = 0
+
+
+def launches(nms_mod) -> dict:
+    return {name[:-5]: getattr(nms_mod, name).launches for name in COUNTED}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -209,7 +314,10 @@ def main() -> None:
     try:
         from cvsd_tpu_torch.config import get_default_config
         from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
-        from cvsd_tpu_torch.models.detector import decode_predictions
+        from cvsd_tpu_torch.models.detector import (build_detector, decode_predictions,
+                                                    decode_predictions_v8, decode_with_tta)
+        from cvsd_tpu_torch.models.pose_topdown import (build_pose_topdown, crop_and_resize,
+                                                        pose_from_boxes, soft_argmax)
         from cvsd_tpu_torch.models.shopformer import build_shopformer
         from cvsd_tpu_torch.ops import nms as nms_mod
         from cvsd_tpu_torch.ops.letterbox import letterbox_batch
@@ -230,16 +338,20 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    kernels = ["nms_fixpoint"]
-    cuda_build.build(kernels)
-    log(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
-    for name in kernels:
+    sources = ["nms_fixpoint", "nms_seq"]
+    cuda_build.build(sources)  # one nvcc per source, started together
+    log(f"[build] {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s")
+    for name in sources:
         for line in cuda_build.build_log(name).splitlines():
-            if "ptxas info" in line:
+            if "ptxas info" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    nms_lib = nms_mod._nms_lib()
-    log("[build] nms_fixpoint: dynamic shared memory per CTA " + ", ".join(
-        f"{nms_lib.cvsd_nms_fixpoint_smem_bytes(k)} B at K={k}" for k in (256, 84)))
+    fix_lib, seq_lib = nms_mod.kernel_lib("nms_fixpoint"), nms_mod.kernel_lib("nms_seq")
+    log("[build] dynamic shared memory per CTA: nms_fixpoint " + ", ".join(
+        f"{fix_lib.cvsd_nms_fixpoint_smem_bytes(k)} B at K={k}" for k in (256, 84))
+        + "; nms_seq " + ", ".join(
+        f"{seq_lib.cvsd_nms_seq_smem_bytes(k)} B at K={k}" for k in (256, 84))
+        + "; nms_seq_multi " + ", ".join(
+        f"{seq_lib.cvsd_nms_seq_multi_smem_bytes(k, 8)} B at K={k}, G=8" for k in (256, 84)))
     set_tf32(False)
     kernel_fn = nms_mod.nms_fixpoint_cuda
 
@@ -255,6 +367,14 @@ def main() -> None:
                 fail(f"nms_fixpoint kernel != plain on {name} B={B} K={K}: {bad} entries")
             log(f"[kernel] nms_fixpoint {name:12s} B={B} K={K}: bit-exact "
                 f"({int(keep.sum())} kept)")
+    cases_84 = nms_cases(128, 84, dev)
+    for K, cases in ((256, cases_256), (84, cases_84)):
+        for name, (boxes, alive, t) in cases.items():
+            kept = check_seq_kernels(nms_mod, f"{name} B=128 K={K}", boxes, alive, t)
+            ragged = check_seq_kernels(nms_mod, f"{name} B=5 K={K} group 8",
+                                       boxes[:5].contiguous(), alive[:5].contiguous(), t)
+            log(f"[kernel] nms_seq, nms_seq_multi {name:12s} K={K}: bit-exact at B=128 "
+                f"({kept} kept) and at B=5 with group 8 ({ragged} kept); == nms_fixpoint")
 
     # -- 3. detect at full width ---------------------------------------------
     cfg = get_default_config()
@@ -269,12 +389,13 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iters = 10
-    kernel_fn.launches = 0
+    reset_launches(nms_mod)
     t0 = time.perf_counter()
     outs = [pipe.detect_frames_async(dev_frames[i % 4]) for i in range(iters)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    detect_launches = kernel_fn.launches
+    detect_counts = launches(nms_mod)
+    detect_launches = detect_counts["nms_fixpoint"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     host = pipe.fetch_detections(outs[-1])
     if not all(np.isfinite(h).all() for h in host) or host[4].shape != (B, 128, 17, 3):
@@ -290,8 +411,9 @@ def main() -> None:
         f"{detect['frames_per_s']:.1f} frames/s (device-resident frames), "
         f"{e2e_ms:.2f} ms/batch host->host, peak {peak_gb:.2f} GB, "
         f"nms launches {detect_launches}")
-    if detect_launches != iters:
-        fail(f"detect phase launched the NMS kernel {detect_launches} times, expected {iters}")
+    if detect_counts != {"nms_fixpoint": iters, "nms_seq": 0, "nms_seq_multi": 0}:
+        fail(f"detect phase launched the NMS kernels {detect_counts}, expected {iters} "
+             f"nms_fixpoint launches and no other")
 
     # the main path's NMS inputs: kernel vs plain, times and bound
     S = pipe.model.img_size
@@ -372,6 +494,193 @@ def main() -> None:
     del p_gpu, p_cpu, raw_gpu, pipe, outs
     torch.cuda.empty_cache()
 
+    # -- 3b. detect, slice 2 ----------------------------------------------------
+    cfg2 = get_default_config()
+    cfg2["detector"].update(SLICE2)
+    pipe2 = DetectionPipeline(cfg2, device=dev, seed=10,
+                              pose_model=build_pose_topdown(cfg2, device=dev, seed=11))
+    for f in dev_frames[:2]:  # warm-up
+        pipe2.detect_frames_async(f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters2 = 5
+    reset_launches(nms_mod)
+    t0 = time.perf_counter()
+    outs2 = [pipe2.detect_frames_async(dev_frames[i % 4]) for i in range(iters2)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    detect2_counts = launches(nms_mod)
+    peak2_gb = torch.cuda.max_memory_allocated() / 1e9
+    host2 = pipe2.fetch_detections(outs2[-1])
+    if not all(np.isfinite(h).all() for h in host2) or host2[4].shape != (B, 128, 17, 3):
+        fail("slice-2 detect outputs are not finite or have the wrong shape")
+    t0 = time.perf_counter()
+    for i in range(2):
+        pipe2.detect_frames(host_frames[i])
+    e2e2_ms = (time.perf_counter() - t0) / 2 * 1e3
+    detect2 = {"ms_per_batch": dt / iters2 * 1e3, "frames_per_s": B * iters2 / dt,
+               "host_to_host_ms_per_batch": e2e2_ms, "peak_mem_gb": peak2_gb,
+               "nms_launches": detect2_counts, "valid_per_frame": float(host2[3].sum()) / B,
+               "batch": B, "iters": iters2}
+    log(f"[detect2] v8dfl 640 bf16 TTA + topdown pose f32, pallas_seq, B={B}: "
+        f"{detect2['ms_per_batch']:.2f} ms/batch {detect2['frames_per_s']:.1f} frames/s "
+        f"(device-resident frames), {e2e2_ms:.2f} ms/batch host->host, peak {peak2_gb:.2f} GB, "
+        f"{detect2['valid_per_frame']:.1f} detections per frame, nms launches {detect2_counts}")
+    if detect2_counts != {"nms_fixpoint": 0, "nms_seq": iters2, "nms_seq_multi": 0}:
+        fail(f"slice-2 detect launched the NMS kernels {detect2_counts}, expected {iters2} "
+             f"nms_seq launches and no other")
+
+    # the slice-2 path's NMS inputs: both sequential kernels against their
+    # plain versions, timed beside the bound, here and on the deep cases
+    with torch.no_grad():
+        images2 = letterbox_batch(dev_frames[0], size=S, dtype=pipe2.model.dtype)
+        boxes2, scores2, _ = decode_with_tta(pipe2.model, images2, tta_flip=True)
+    _ts, _ti, cand2, alive2_b = nms_mod.prefilter(boxes2, scores2, pipe2.conf, 256)
+    cand2, alive2 = cand2.contiguous(), alive2_b.to(torch.float32)
+    seq_rows = {}
+    for kname, kfn, pfn in (
+            ("nms_seq", nms_mod.nms_seq_cuda, nms_mod.nms_seq_torch),
+            ("nms_seq_multi", lambda b, a, t: nms_mod.nms_seq_multi_cuda(b, a, t, 8),
+             lambda b, a, t: nms_mod.nms_seq_multi_torch(b, a, t, 8))):
+        keep = kfn(cand2, alive2, pipe2.iou)
+        torch.cuda.synchronize()
+        ref = pfn(cand2, alive2, pipe2.iou)
+        if not torch.equal(keep, ref):
+            fail(f"{kname} kernel != plain on the slice-2 path's candidates")
+        err = float((keep - ref).abs().max())
+        k_ms = cuda_ms(lambda: kfn(cand2, alive2, pipe2.iou), iters=200, warmup=20)
+        p_ms = cuda_ms(lambda: pfn(cand2, alive2, pipe2.iou), iters=10, warmup=2)
+        lib_ms2 = library_nms_ms(cand2, alive2, pipe2.iou)
+        b_ms, b_by, nbytes2, nops2 = seq_bound(cand2, alive2, ref, pipe2.iou)
+        deep2 = []
+        for name in ("dense", "chain"):
+            boxes, alive, t = cases_256[name]
+            c_keep = pfn(boxes, alive, t)
+            c_ms = cuda_ms(lambda: kfn(boxes, alive, t), iters=100, warmup=10)
+            c_plain = cuda_ms(lambda: pfn(boxes, alive, t), iters=5, warmup=1)
+            c_bound, c_by, _nb, _no = seq_bound(boxes, alive, c_keep, t)
+            deep2.append({"case": name, "B": 128, "K": 256, "ms": c_ms, "plain_ms": c_plain,
+                          "bound_ms": c_bound, "bound_by": c_by, "kept": int(c_keep.sum())})
+            log(f"[kernel] {kname} {name} B=128 K=256: {c_ms * 1e3:.1f} us (plain "
+                f"{c_plain * 1e3:.1f} us), bound {c_bound * 1e3:.3f} us by {c_by}; "
+                f"{int(c_keep.sum())} kept")
+        seq_rows[kname] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": lib_ms2, "deep_cases": deep2,
+                           "kept_on_main_path": int(ref.sum())}
+        log(f"[kernel] {kname} slice-2 path B={cand2.shape[0]} K={cand2.shape[1]}: "
+            f"{k_ms * 1e3:.1f} us (plain {p_ms * 1e3:.1f} us, library "
+            f"{'n/a' if lib_ms2 is None else f'{lib_ms2 * 1e3:.1f} us'}), bound "
+            f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes2} B, {nops2} ops; {int(ref.sum())} of "
+            f"{int(alive2.sum())} candidates kept)")
+    # where a slice-2 batch's time goes, layer by layer (CUDA events, the same
+    # canvas and the pipeline's own modules)
+    with torch.no_grad():
+        boxes_lb2 = pipe2._detect(images2)[0]
+        canvas32 = images2.to(torch.float32)
+        crops2, _o, _s = crop_and_resize(canvas32, boxes_lb2, pipe2.pose_model.crop_size)
+        crops2 = crops2.reshape(-1, *crops2.shape[2:])
+        heat2 = pipe2.pose_model(crops2)
+        split = {
+            "detector_tta_decode_ms": cuda_ms(
+                lambda: decode_with_tta(pipe2.model, images2, tta_flip=True), iters=3, warmup=1),
+            "batched_nms_ms": cuda_ms(lambda: nms_mod.batched_nms(
+                boxes2, scores2, pipe2.conf, pipe2.iou, pipe2.max_det, method="pallas_seq"),
+                iters=10, warmup=2),
+            "crop_and_resize_ms": cuda_ms(lambda: crop_and_resize(
+                canvas32, boxes_lb2, pipe2.pose_model.crop_size), iters=3, warmup=1),
+            "pose_net_ms": cuda_ms(lambda: pipe2.pose_model(crops2), iters=3, warmup=1),
+            "soft_argmax_ms": cuda_ms(lambda: soft_argmax(heat2), iters=5, warmup=1),
+            "pose_crops": int(crops2.shape[0]),
+        }
+    detect2["split"] = split
+    log(f"[detect2] split of one B={B} batch: " + ", ".join(
+        f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}" for k, v in split.items()))
+    del outs2, images2, boxes2, scores2, pipe2, crops2, heat2, canvas32
+    torch.cuda.empty_cache()
+
+    # f32 at full width, card vs CPU, same weights: the v8dfl head maps, then
+    # batched_nms('pallas_seq') and the top-down keypoints on the same boxes
+    cfg2_32 = get_default_config()
+    cfg2_32["detector"].update(SLICE2, dtype="float32")
+    m_gpu = build_detector(cfg2_32, device=dev, seed=12)
+    m_cpu = build_detector(cfg2_32, device=cpu,
+                           state_dict={k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    with torch.no_grad():
+        raw_cpu = m_cpu(lb_cpu)
+        raw_gpu = m_gpu(lb_cpu.to(dev))
+        set_tf32(True)
+        raw_tf32 = m_gpu(lb_cpu.to(dev))
+        set_tf32(False)
+    worst_v8 = worst_v8_tf32 = 0.0
+    for name in ("p3", "p4", "p5"):
+        r = raw_cpu[name]
+        err = float((raw_gpu[name].cpu() - r).abs().max() / r.abs().max())
+        err_tf32 = float((raw_tf32[name].cpu() - r).abs().max() / r.abs().max())
+        worst_v8, worst_v8_tf32 = max(worst_v8, err), max(worst_v8_tf32, err_tf32)
+        log(f"[detect2] f32 v8dfl raw {name} {tuple(r.shape)}: max|card-cpu|/max|cpu| = "
+            f"{err:.2e} (with TF32 {err_tf32:.2e})")
+    b_cpu, s_cpu, _ = decode_predictions_v8(raw_cpu, 80, 16, 0)
+    ref_cpu = nms_mod.batched_nms(b_cpu, s_cpu, 0.25, 0.45, 128, method="pallas_seq")
+    got_gpu = nms_mod.batched_nms(b_cpu.to(dev), s_cpu.to(dev), 0.25, 0.45, 128,
+                                  method="pallas_seq")
+    for name, r, g in zip(("boxes", "scores", "valid", "anchor_idx"), ref_cpu, got_gpu):
+        if not torch.equal(g.cpu(), r):
+            fail(f"batched_nms('pallas_seq') on the card != CPU on the same decoded inputs ({name})")
+    log(f"[detect2] batched_nms('pallas_seq') card == CPU on the f32 v8dfl decode "
+        f"({int(ref_cpu[2].sum())} detections in 2 frames)")
+    pose_gpu = build_pose_topdown(cfg2_32, device=dev, seed=13)
+    pose_cpu = build_pose_topdown(cfg2_32, device=cpu,
+                                  state_dict={k: v.cpu() for k, v in pose_gpu.state_dict().items()})
+    kp_cpu, crops_cpu = pose_from_boxes(pose_cpu, lb_cpu, ref_cpu[0])
+    kp_gpu, _ = pose_from_boxes(pose_gpu, lb_cpu.to(dev), ref_cpu[0].to(dev))
+    crops_flat = crops_cpu.reshape(-1, *crops_cpu.shape[2:])
+    with torch.no_grad():
+        heat_cpu = pose_cpu(crops_flat)
+        heat_gpu = pose_gpu(crops_flat.to(dev)).cpu()
+        set_tf32(True)
+        kp_tf32, _ = pose_from_boxes(pose_gpu, lb_cpu.to(dev), ref_cpu[0].to(dev))
+        heat_tf32 = pose_gpu(crops_flat.to(dev)).cpu()
+        set_tf32(False)
+
+    def kpt_err(got):
+        """max|card - cpu| / max|cpu| of the keypoint triple: x and y against
+        the largest coordinate, the confidence against the largest one."""
+        got = got.cpu()
+        xy = (got[..., :2] - kp_cpu[..., :2]).abs().max() / kp_cpu[..., :2].abs().max()
+        conf = (got[..., 2] - kp_cpu[..., 2]).abs().max() / kp_cpu[..., 2].abs().max()
+        return float(xy), float(conf)
+
+    (kp_xy, kp_conf), (kp_xy_tf32, kp_conf_tf32) = kpt_err(kp_gpu), kpt_err(kp_tf32)
+    heat_rel = float((heat_gpu - heat_cpu).abs().max() / heat_cpu.abs().max())
+    heat_rel_tf32 = float((heat_tf32 - heat_cpu).abs().max() / heat_cpu.abs().max())
+    log(f"[detect2] f32 top-down keypoints on the same {tuple(ref_cpu[0].shape)} boxes, "
+        f"max|card-cpu|/max|cpu|: x,y {kp_xy:.2e} (with TF32 {kp_xy_tf32:.2e}), confidence "
+        f"{kp_conf:.2e} (with TF32 {kp_conf_tf32:.2e}); the pose net's heatmap logits "
+        f"{heat_rel:.2e} (with TF32 {heat_rel_tf32:.2e})")
+    detect2.update({"f32_raw_rel_err": worst_v8, "f32_raw_rel_err_tf32": worst_v8_tf32,
+                    "f32_kpt_xy_rel_err": kp_xy, "f32_kpt_xy_rel_err_tf32": kp_xy_tf32,
+                    "f32_kpt_conf_rel_err": kp_conf, "f32_kpt_conf_rel_err_tf32": kp_conf_tf32,
+                    "f32_pose_heat_rel_err": heat_rel,
+                    "f32_pose_heat_rel_err_tf32": heat_rel_tf32})
+    if worst_v8 > TOL_RAW_V8_F32:
+        fail(f"f32 v8dfl head maps card vs CPU differ by {worst_v8:.2e} > {TOL_RAW_V8_F32}")
+    if worst_v8_tf32 <= TOL_RAW_V8_F32:
+        fail(f"the v8dfl head-map limit {TOL_RAW_V8_F32} passes TF32 ({worst_v8_tf32:.2e})")
+    if heat_rel > TOL_POSE_HEAT_F32:
+        fail(f"f32 pose heatmaps card vs CPU differ by {heat_rel:.2e} > {TOL_POSE_HEAT_F32}")
+    if heat_rel_tf32 <= TOL_POSE_HEAT_F32:
+        fail(f"the pose heatmap limit {TOL_POSE_HEAT_F32} passes TF32 ({heat_rel_tf32:.2e})")
+    if kp_xy > TOL_POSE_XY_F32:
+        fail(f"f32 top-down keypoint x, y card vs CPU differ by {kp_xy:.2e} > {TOL_POSE_XY_F32}")
+    if kp_conf > TOL_POSE_CONF_F32:
+        fail(f"f32 top-down keypoint confidences card vs CPU differ by {kp_conf:.2e} > "
+             f"{TOL_POSE_CONF_F32}")
+    if kp_conf_tf32 <= TOL_POSE_CONF_F32:
+        fail(f"the keypoint confidence limit {TOL_POSE_CONF_F32} passes TF32 "
+             f"({kp_conf_tf32:.2e})")
+    del m_gpu, m_cpu, raw_gpu, raw_tf32, pose_gpu, heat_gpu, heat_tf32
+    torch.cuda.empty_cache()
+
     # -- 4. score -----------------------------------------------------------
     scfg = get_default_config()
     s_gpu = build_shopformer(scfg, device=dev, seed=2)
@@ -403,44 +712,67 @@ def main() -> None:
         f"(with TF32 {rel_tf32:.2e})")
 
     # -- 5. stream ------------------------------------------------------------
-    stcfg = get_default_config()
-    scorer = ShopformerScorer(build_shopformer(stcfg, device=dev, seed=4), stcfg, device=dev)
-    spipe = StreamingPipeline(stcfg, scorer, device=dev, seed=5)
     vids = {f"s{i}": render_frames(48, 320, 240, seed=i) for i in range(4)}
-    # warm-up on a separate reader, then the measured pass
-    spipe.run_stream(RoundRobinReader(spipe, [ArraySource("w", vids["s0"][:32])], (240, 320), 4))
-    torch.cuda.synchronize()
-    spipe._stage_seconds = {"read": 0.0, "detect": 0.0, "track": 0.0, "score": 0.0}
-    kernel_fn.launches = 0
-    reader = RoundRobinReader(spipe, [ArraySource(n, f) for n, f in vids.items()], (240, 320), 4)
-    t0 = time.perf_counter()
-    events = spipe.run_stream(reader)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    stream_launches = kernel_fn.launches
-    stream = {"streams": 4, "frames": reader.n_frames, "events": len(events), "seconds": dt,
-              "frames_per_s": reader.n_frames / dt, "nms_launches": stream_launches,
-              "stage_seconds": dict(spipe._stage_seconds)}
-    log(f"[stream] v5m 640 bf16 pose, 4 streams x 48 frames: {len(events)} events, "
-        f"{stream['frames_per_s']:.1f} frames/s, stages "
-        f"{json.dumps({k: round(v, 4) for k, v in stream['stage_seconds'].items()})}, "
-        f"nms launches {stream_launches}")
-    if not events or not all(np.isfinite(e.score) for e in events):
-        fail("the full-width stream produced no (finite) events")
-    if stream_launches == 0:
-        fail("the stream phase never launched the NMS kernel")
+
+    def stream_full(tag: str, what: str, stcfg, scorer_seed: int, pipe_seed: int,
+                    pose_model=None):
+        """StreamingPipeline at full width, 4 streams x 48 frames; the launch
+        counts are those of the measured pass alone."""
+        scorer = ShopformerScorer(build_shopformer(stcfg, device=dev, seed=scorer_seed), stcfg,
+                                  device=dev)
+        spipe = StreamingPipeline(stcfg, scorer, device=dev, seed=pipe_seed,
+                                  pose_model=pose_model)
+        # warm-up on a separate reader, then the measured pass
+        spipe.run_stream(RoundRobinReader(spipe, [ArraySource("w", vids["s0"][:32])],
+                                          (240, 320), 4))
+        torch.cuda.synchronize()
+        spipe._stage_seconds = {"read": 0.0, "detect": 0.0, "track": 0.0, "score": 0.0}
+        reset_launches(nms_mod)
+        reader = RoundRobinReader(spipe, [ArraySource(n, f) for n, f in vids.items()],
+                                  (240, 320), 4)
+        t0 = time.perf_counter()
+        events = spipe.run_stream(reader)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launches(nms_mod)
+        out = {"streams": 4, "frames": reader.n_frames, "events": len(events), "seconds": dt,
+               "frames_per_s": reader.n_frames / dt, "nms_launches": counts,
+               "stage_seconds": dict(spipe._stage_seconds)}
+        log(f"[{tag}] {what}, 4 streams x 48 frames: {len(events)} events, "
+            f"{out['frames_per_s']:.1f} frames/s, stages "
+            f"{json.dumps({k: round(v, 4) for k, v in out['stage_seconds'].items()})}, "
+            f"nms launches {counts}")
+        if not events or not all(np.isfinite(e.score) for e in events):
+            fail(f"the full-width stream ({what}) produced no (finite) events")
+        return out, counts
+
+    stream, stream_counts = stream_full("stream", "v5m 640 bf16 pose", get_default_config(), 4, 5)
+    stream_launches = stream_counts["nms_fixpoint"]
+    if stream_launches == 0 or stream_counts["nms_seq"] or stream_counts["nms_seq_multi"]:
+        fail(f"the stream phase launched the NMS kernels {stream_counts}: expected nms_fixpoint "
+             f"and no other")
 
     # test-sized fixture: card vs CPU from the same in-memory frames, with the
     # score gap split into the pose windows' part and the scorer's part
-    def fixture_run(device):
+    def fixture_config(slice2: bool = False):
         c = get_default_config()
         c["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, batch_size=4,
                              conf_threshold=0.0, max_detections=2, dtype="float32",
                              pose_head=True)
+        if slice2:  # the slice-2 settings at the fixture's size
+            c["detector"].update(head_variant="v8dfl", pose_head=False, pose_mode="topdown",
+                                 pose_topdown={"num_keypoints": 17, "width": 8, "crop_size": 32},
+                                 tta_flip=True, nms_method="pallas_seq")
         c["model"]["hidden_channels"] = 8
         c["data"]["stride"] = 6
+        return c
+
+    def fixture_run(device, slice2: bool = False):
+        c = fixture_config(slice2)
+        pose = build_pose_topdown(c, device=device, seed=9) if slice2 else None
         sm = build_shopformer(c, device=device, seed=6)
-        p = StreamingPipeline(c, ShopformerScorer(sm, c, device=device), device=device, seed=8)
+        p = StreamingPipeline(c, ShopformerScorer(sm, c, device=device), device=device, seed=8,
+                              pose_model=pose)
         raw, prepared = [], []
         prepare = p._prepare_window
 
@@ -516,19 +848,118 @@ def main() -> None:
         fail(f"fixture event scores card vs CPU differ by {gap:.2e} > "
              f"{TOL_FIXTURE_SCORE} x {score_max:.3e}")
 
+    # -- 5b. stream, slice 2 ----------------------------------------------------
+    st2 = get_default_config()
+    st2["detector"].update(SLICE2)
+    stream2, stream2_counts = stream_full(
+        "stream2", "v8dfl 640 bf16 TTA + topdown, pallas_seq", st2, 14, 15,
+        pose_model=build_pose_topdown(st2, device=dev, seed=16))
+    if (stream2_counts["nms_seq"] == 0 or stream2_counts["nms_fixpoint"]
+            or stream2_counts["nms_seq_multi"]):
+        fail(f"the slice-2 stream launched the NMS kernels {stream2_counts}: expected nms_seq "
+             f"and no other")
+    ev2_gpu, raw2_gpu_w, _p, _s = fixture_run(dev, slice2=True)
+    ev2_cpu, raw2_cpu_w, _p, _s = fixture_run(cpu, slice2=True)
+    bad = key_mismatch(ev2_gpu, ev2_cpu)
+    if bad:
+        fail(f"slice-2 fixture events differ card vs CPU: {bad}")
+    if len(ev2_gpu) != len(raw2_gpu_w) or len(ev2_cpu) != len(raw2_cpu_w):
+        fail("slice-2 fixture: the scored windows and the events do not pair up")
+    if len(ev2_gpu) <= 20:
+        fail(f"slice-2 fixture: only {len(ev2_gpu)} events")
+    # each event against the CPU's event of the same key: its score and the
+    # keypoint window it was scored on (events come in the windows' order)
+    cpu2 = {ekey(e): (e.score, w) for e, w in zip(ev2_cpu, raw2_cpu_w)}
+    coord2_max = float(np.abs(raw2_cpu_w).max())
+    win2_gap = np.array([np.abs(w - cpu2[ekey(e)][1]).max() / coord2_max
+                         for e, w in zip(ev2_gpu, raw2_gpu_w)])
+    score2_gap = np.array([abs(e.score - cpu2[ekey(e)][0]) for e in ev2_gpu])
+    score2_max = max(abs(e.score) for e in ev2_cpu)
+    same_w = win2_gap <= TOL_FIXTURE2_KPT
+    n_other = int((~same_w).sum())
+    gap2_same = float(score2_gap[same_w].max()) if same_w.any() else float("nan")
+    gap2_other = float(score2_gap[~same_w].max()) if n_other else 0.0
+    extent2 = min(normalization_extent(w) for w in raw2_cpu_w)
+    fixture2 = {"events": len(ev2_gpu), "windows": int(raw2_cpu_w.shape[0]),
+                "max_score_gap": float(score2_gap.max()), "max_abs_score": score2_max,
+                "kpt_rel_gap": float(win2_gap.max()),
+                "events_same_windows": int(same_w.sum()), "events_other_windows": n_other,
+                "max_score_gap_same_windows": gap2_same,
+                "max_score_gap_other_windows": gap2_other,
+                "max_kpt_rel_gap_same_windows": float(win2_gap[same_w].max()) if same_w.any()
+                else float("nan"),
+                "min_normalization_extent_px": extent2}
+    log(f"[stream2] fixture img64 f32 v8dfl TTA topdown pallas_seq: {len(ev2_gpu)} events, keys "
+        f"card == CPU, largest |score| {score2_max:.3e}; {int(same_w.sum())} events whose "
+        f"keypoint windows agree within {TOL_FIXTURE2_KPT} (max|card-cpu|/max|cpu| "
+        f"{fixture2['max_kpt_rel_gap_same_windows']:.2e}): max score gap {gap2_same:.2e}; "
+        f"{n_other} whose windows differ (up to {win2_gap.max():.2e}): max score gap "
+        f"{gap2_other:.2e}; smallest normalization extent {extent2:.3e} px")
+    if not gap2_same <= TOL_FIXTURE_SCORE * score2_max:
+        fail(f"slice-2 fixture event scores on the same windows card vs CPU differ by "
+             f"{gap2_same:.2e} > {TOL_FIXTURE_SCORE} x {score2_max:.3e}")
+    if 2 * n_other > len(ev2_gpu):
+        fail(f"slice-2 fixture: {n_other} of {len(ev2_gpu)} keypoint windows differ card vs CPU")
+    # the fixture's detections on all its frames, card vs CPU: random v8dfl
+    # weights put every score near 0.5, many nearly tied, so float32 rounding can
+    # change which 2 anchors a frame keeps (often a neighbour one stride
+    # away, whose box clips to the same source box, so the tracks agree).
+    # Where both keep the same canvas boxes, the ones the pose net crops,
+    # the top-down keypoints must agree to float32 rounding.
+    fx_frames = np.concatenate([render_frames(40, 160, 128, seed=i) for i in range(6)])
+    fc = fixture_config(slice2=True)
+    fx = []
+    for d in (dev, cpu):
+        fp = DetectionPipeline(fc, device=d, seed=8,
+                               pose_model=build_pose_topdown(fc, device=d, seed=9))
+        with torch.no_grad():
+            canvas = letterbox_batch(torch.from_numpy(fx_frames).to(d), size=64,
+                                     dtype=torch.float32)
+            boxes_lb = fp._detect(canvas)[0].cpu().numpy()
+        fx.append((boxes_lb, fp.detect_frames(fx_frames)))
+    (lb_card, fx_card), (lb_cpu, fx_cpu) = fx
+    same = (np.abs(lb_card - lb_cpu).max(-1) < 1e-3) & fx_cpu[3] & fx_card[3]
+    frames_differ = int((~same.all(1)).sum())
+    kp_same = fx_cpu[4][same]
+    kpt2_same_rel = (float(np.abs(fx_card[4][same][..., :2] - kp_same[..., :2]).max()
+                           / np.abs(kp_same[..., :2]).max()) if same.any() else float("nan"))
+    fixture2.update({"frames_with_other_boxes": frames_differ, "frames": len(fx_frames),
+                     "kpt_rel_gap_same_boxes": kpt2_same_rel})
+    log(f"[stream2] fixture detections on its {len(fx_frames)} frames: {frames_differ} frames "
+        f"keep other boxes on the card than on the CPU; where the boxes agree "
+        f"({int(same.sum())} slots) the keypoints max|card-cpu|/max|cpu| {kpt2_same_rel:.2e}")
+    if not kpt2_same_rel <= TOL_FIXTURE2_KPT:
+        fail(f"slice-2 fixture keypoints on the same boxes card vs CPU differ by "
+             f"{kpt2_same_rel:.2e} > {TOL_FIXTURE2_KPT}")
+
     # -- 6. phase summary, kernel list and result ------------------------------
-    print(json.dumps({"card": card, "detect": detect, "score": score, "stream": stream,
-                      "fixture": fixture, "seconds": time.perf_counter() - t_start}), flush=True)
-    # launches: the stream phase's count (the whole main path, detect to score)
-    print(json.dumps({"kernels": [{
-        "name": "nms_fixpoint", "route": "cuda",
-        "source": "cvsd_tpu_torch/csrc/nms_fixpoint.cu",
-        "replaces": "cvsd_tpu/ops/nms.py:248",
-        "launches": stream_launches, "max_abs_err": max_abs_err,
-        "ms": nms_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms, "shape": {"B": int(cand.shape[0]), "K": int(cand.shape[1])},
-        "suppressed_on_main_path": n_suppressed, "deep_cases": deep_cases,
-    }]}), flush=True)
+    print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
+                      "stream": stream, "fixture": fixture, "stream_slice2": stream2,
+                      "fixture_slice2": fixture2, "seconds": time.perf_counter() - t_start}),
+          flush=True)
+    # launches: each kernel's count in the stream run of its slice (the whole
+    # main path, detect to score); the grouped kernel is on no path
+    shape2 = {"B": int(cand2.shape[0]), "K": int(cand2.shape[1])}
+    seq_common = {"route": "cuda", "source": "cvsd_tpu_torch/csrc/nms_seq.cu", "shape": shape2,
+                  "launches_detect_slice2": detect2_counts}
+    kernels = [
+        {"name": "nms_fixpoint", "route": "cuda",
+         "source": "cvsd_tpu_torch/csrc/nms_fixpoint.cu",
+         "replaces": "cvsd_tpu/ops/nms.py:248",
+         "launches": stream_launches, "max_abs_err": max_abs_err,
+         "ms": nms_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": lib_ms, "shape": {"B": int(cand.shape[0]), "K": int(cand.shape[1])},
+         "suppressed_on_main_path": n_suppressed, "deep_cases": deep_cases},
+        {"name": "nms_seq", "replaces": "cvsd_tpu/ops/nms.py:62",
+         "launches": stream2_counts["nms_seq"], **seq_rows["nms_seq"], **seq_common},
+        {"name": "nms_seq_multi", "replaces": "cvsd_tpu/ops/nms.py:125",
+         "launches": stream2_counts["nms_seq_multi"], "group": 8, "on_main_path": False,
+         **seq_rows["nms_seq_multi"], **seq_common},
+    ]
+    for k in kernels:
+        if k["library_ms"] is None:
+            k["library_note"] = LIBRARY_NOTE
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

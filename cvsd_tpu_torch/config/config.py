@@ -129,7 +129,7 @@ def get_default_config() -> Config:
                 "conf_threshold": 0.25,
                 "iou_threshold": 0.45,
                 "max_detections": 128,
-                "nms_method": "pallas_fixpoint",  # the only ported method (CUDA kernel)
+                "nms_method": "pallas_fixpoint",  # | pallas_seq (the ported CUDA kernels)
                 "person_class_only": True,
                 "pose_head": False,
                 "tta_flip": False,  # horizontal-flip TTA (2x fwd, ~sqrt(2) less kpt noise)

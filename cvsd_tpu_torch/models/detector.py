@@ -1,6 +1,8 @@
-"""Person detector: CSP backbone + SPPF + PAN neck + decoupled anchor-free
-head (3 scales, strides 8/16/32) with the optional 17-keypoint pose branch
-(PyTorch port of ``cvsd_tpu/models/detector.py``).
+"""Person detector: CSP backbone + SPPF + PAN neck + one of two heads at 3
+scales (strides 8/16/32) — the compact anchor-free head or the ultralytics-u
+DFL head (``v8dfl``) — each with the optional 17-keypoint pose branch, and
+horizontal-flip test-time averaging (PyTorch port of
+``cvsd_tpu/models/detector.py``).
 
 Submodules carry the flax auto-names (``Backbone_0``, ``C3_2``,
 ``ConvBNAct_1``, ``Conv_0``, ``BatchNorm_0``, ...) so flax weights load
@@ -13,11 +15,13 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvsd_tpu_torch.ops.nms import batched_nms
+from cvsd_tpu_torch.data.augment import flip_permutation
+from cvsd_tpu_torch.ops.nms import batched_nms, check_nms_method
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, torch_dtype
 
 STRIDES = (8, 16, 32)
@@ -175,34 +179,78 @@ class DetectHead(nn.Module):
         return torch.cat(outs, 1)  # (B, 5[+3K], H, W)
 
 
-class PersonDetector(nn.Module):
-    """Backbone -> PAN -> anchor-free heads at strides 8/16/32.
+class V8DFLHead(nn.Module):
+    """Ultralytics v8-style decoupled head: DFL box branch (4*reg_max bins) +
+    class branch (nc logits) [+ the optional keypoint branch]. The branch
+    widths (box_ch, cls_ch) are set from the P3 width and shared by the
+    three levels, as in the Detect module of yolov5*u checkpoints."""
 
+    def __init__(self, c: int, num_classes: int = 80, reg_max: int = 16, box_ch: int = 64,
+                 cls_ch: int = 192, num_keypoints: int = 0):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(c, box_ch, 3)
+        self.ConvBNAct_1 = ConvBNAct(box_ch, box_ch, 3)
+        self.Conv_0 = nn.Conv2d(box_ch, 4 * reg_max, 1)
+        self.ConvBNAct_2 = ConvBNAct(c, cls_ch, 3)
+        self.ConvBNAct_3 = ConvBNAct(cls_ch, cls_ch, 3)
+        self.Conv_1 = nn.Conv2d(cls_ch, num_classes, 1)
+        self.num_keypoints = num_keypoints
+        if num_keypoints:
+            self.ConvBNAct_4 = ConvBNAct(c, c, 3)
+            self.Conv_2 = nn.Conv2d(c, num_keypoints * 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [self.Conv_0(self.ConvBNAct_1(self.ConvBNAct_0(x))),
+                self.Conv_1(self.ConvBNAct_3(self.ConvBNAct_2(x)))]
+        if self.num_keypoints:
+            outs.append(self.Conv_2(self.ConvBNAct_4(x)))
+        return torch.cat(outs, 1)  # (B, 4*reg_max + nc [+3K], H, W)
+
+
+class PersonDetector(nn.Module):
+    """Backbone -> PAN -> heads at strides 8/16/32.
+
+    head_variant 'anchor_free' (4 box + 1 objectness [+ keypoints]) or
+    'v8dfl' (the ultralytics-u DFL head, ``num_classes`` logits).
     forward(images (B, S, S, 3) in [0, 1], NHWC) -> raw per-level maps
-    {'p3', 'p4', 'p5'}, each (B, H, W, 5[+3K]) NHWC like the reference."""
+    {'p3', 'p4', 'p5'}, each (B, H, W, C) NHWC like the reference."""
 
     def __init__(self, img_size: int = 640, width_mult: float = 0.75, depth_mult: float = 0.67,
-                 num_keypoints: int = 0, channel_divisor: int = 8,
+                 num_keypoints: int = 0, head_variant: str = "anchor_free",
+                 num_classes: int = 80, reg_max: int = 16, channel_divisor: int = 8,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if head_variant not in ("anchor_free", "v8dfl"):
+            raise ValueError(f"unknown head_variant {head_variant!r}")
         self.img_size = img_size
         self.num_keypoints = num_keypoints
+        self.head_variant = head_variant
+        self.num_classes = num_classes
+        self.reg_max = reg_max
         self.dtype = dtype
-        self.head_variant = "anchor_free"
         w, _ = _widths(width_mult, depth_mult, channel_divisor)
         self.Backbone_0 = Backbone(width_mult, depth_mult, channel_divisor)
         self.PANNeck_0 = PANNeck(width_mult, depth_mult, channel_divisor)
-        for i, c in enumerate((w(256), w(512), w(1024))):
-            self.add_module(f"DetectHead_{i}", DetectHead(c, num_keypoints))
+        widths = (w(256), w(512), w(1024))
+        if head_variant == "v8dfl":
+            box_ch = max(16, widths[0] // 4, 4 * reg_max)
+            cls_ch = max(widths[0], min(num_classes, 100))
+            self.heads = [f"V8DFLHead_{i}" for i in range(3)]
+            for name, c in zip(self.heads, widths):
+                self.add_module(name, V8DFLHead(c, num_classes, reg_max, box_ch, cls_ch,
+                                                num_keypoints))
+        else:
+            self.heads = [f"DetectHead_{i}" for i in range(3)]
+            for name, c in zip(self.heads, widths):
+                self.add_module(name, DetectHead(c, num_keypoints))
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        n3, n4, n5 = self.PANNeck_0(self.Backbone_0(x))
-        heads = (self.DetectHead_0, self.DetectHead_1, self.DetectHead_2)
-        return {name: h(f).permute(0, 2, 3, 1)
-                for name, h, f in zip(("p3", "p4", "p5"), heads, (n3, n4, n5))}
+        feats = self.PANNeck_0(self.Backbone_0(x))
+        return {level: getattr(self, head)(f).permute(0, 2, 3, 1)
+                for level, head, f in zip(("p3", "p4", "p5"), self.heads, feats)}
 
 
 def decode_predictions(
@@ -237,20 +285,103 @@ def decode_predictions(
     return boxes, scores, kpts
 
 
+def decode_predictions_v8(
+    raw: Dict[str, torch.Tensor],
+    num_classes: int = 80,
+    reg_max: int = 16,
+    num_keypoints: int = 0,
+    class_idx: int = 0,  # person: the reference tracks classes=[0]
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """v8/u-head decode: DFL softmax-expectation distances -> xyxy boxes in
+    letterboxed-pixel coordinates + per-anchor person score (anchor points at
+    cell centres + 0.5, ltrb distances, as ultralytics' Detect). The maps are
+    cast to float32 before the DFL softmax."""
+    boxes_all, scores_all, kpts_all = [], [], []
+    bins = None
+    for name, stride in zip(("p3", "p4", "p5"), STRIDES):
+        x = raw[name].to(torch.float32)
+        B, H, W, _ = x.shape
+        if bins is None:
+            bins = torch.arange(reg_max, dtype=torch.float32, device=x.device)
+        gy = torch.arange(H, dtype=torch.float32, device=x.device)[:, None].expand(H, W) + 0.5
+        gx = torch.arange(W, dtype=torch.float32, device=x.device)[None, :].expand(H, W) + 0.5
+        dist = x[..., : 4 * reg_max].reshape(B, H, W, 4, reg_max)
+        dist = (torch.softmax(dist, dim=-1) * bins).sum(-1)  # (B, H, W, 4) ltrb
+        x1 = (gx - dist[..., 0]) * stride
+        y1 = (gy - dist[..., 1]) * stride
+        x2 = (gx + dist[..., 2]) * stride
+        y2 = (gy + dist[..., 3]) * stride
+        boxes_all.append(torch.stack([x1, y1, x2, y2], -1).reshape(B, H * W, 4))
+        scores_all.append(torch.sigmoid(x[..., 4 * reg_max + class_idx]).reshape(B, H * W))
+        if num_keypoints:
+            k = x[..., 4 * reg_max + num_classes:].reshape(B, H, W, num_keypoints, 3)
+            kx = (gx[..., None] - 0.5 + k[..., 0] * 2.0) * stride
+            ky = (gy[..., None] - 0.5 + k[..., 1] * 2.0) * stride
+            kc = torch.sigmoid(k[..., 2])
+            kpts_all.append(torch.stack([kx, ky, kc], -1).reshape(B, H * W, num_keypoints, 3))
+    boxes = torch.cat(boxes_all, 1)
+    scores = torch.cat(scores_all, 1)
+    kpts = torch.cat(kpts_all, 1) if kpts_all else None
+    return boxes, scores, kpts
+
+
+def decode_raw(model: PersonDetector, raw: Dict[str, torch.Tensor]):
+    """Variant-dispatching decode: raw head maps -> (boxes, scores, kpts)."""
+    if model.head_variant == "v8dfl":
+        return decode_predictions_v8(raw, model.num_classes, model.reg_max, model.num_keypoints)
+    return decode_predictions(raw, model.img_size, model.num_keypoints)
+
+
+def flip_anchor_permutation(h: int, w: int) -> np.ndarray:
+    """Flat anchor permutation pairing every FPN anchor with its horizontal
+    mirror: level (H, W) index y*W+x <-> y*W+(W-1-x)."""
+    parts, offset = [], 0
+    for stride in STRIDES:
+        H, W = h // stride, w // stride
+        y, x = np.mgrid[0:H, 0:W]
+        parts.append(offset + (y * W + (W - 1 - x)).reshape(-1))
+        offset += H * W
+    return np.concatenate(parts)
+
+
+def decode_with_tta(model: PersonDetector, images: torch.Tensor, tta_flip: bool = False):
+    """images (B, S, S, 3) -> decoded (boxes (B,A,4), scores (B,A), kpts).
+    With ``tta_flip``: one 2B forward on [images, mirrored images], then each
+    anchor averaged with its mirror partner's decode (static anchor
+    permutation, x -> S - x, and the COCO left/right keypoint swap)."""
+    if not tta_flip:
+        return decode_raw(model, model(images))
+    B, S = images.shape[0], images.shape[2]
+    both = torch.cat([images, images.flip(2)], 0)
+    boxes2, scores2, kpts2 = decode_raw(model, model(both))
+    perm = torch.from_numpy(flip_anchor_permutation(int(images.shape[1]), int(S))).to(
+        boxes2.device)
+    fb = boxes2[B:][:, perm]
+    fb = torch.stack([S - fb[..., 2], fb[..., 1], S - fb[..., 0], fb[..., 3]], -1)
+    boxes = 0.5 * (boxes2[:B] + fb)
+    scores = 0.5 * (scores2[:B] + scores2[B:][:, perm])
+    kpts = None
+    if kpts2 is not None:
+        kperm = torch.from_numpy(flip_permutation(model.num_keypoints)).to(kpts2.device)
+        fk = kpts2[B:][:, perm][:, :, kperm]
+        fk = torch.stack([S - fk[..., 0], fk[..., 1], fk[..., 2]], -1)
+        kpts = 0.5 * (kpts2[:B] + fk)
+    return boxes, scores, kpts
+
+
 def make_detect_fn(model: PersonDetector, conf_thresh: float = 0.25, iou_thresh: float = 0.45,
-                   max_detections: int = 128, tta_flip: bool = False):
+                   max_detections: int = 128, nms_method: str = "pallas_fixpoint",
+                   tta_flip: bool = False):
     """images (B, S, S, 3) -> (boxes (B,M,4) xyxy, scores (B,M), valid (B,M)
-    [, kpts (B,M,17,3)]): forward, decode, top-K, fixpoint NMS, keypoint gather."""
-    if tta_flip:
-        raise NotImplementedError(
-            "detector.tta_flip is not ported yet: ROADMAP.md, deferred items")
+    [, kpts (B,M,17,3)]): forward (2B with ``tta_flip``), decode, top-K, the
+    ``nms_method`` kernel's greedy NMS, keypoint gather."""
+    check_nms_method(nms_method)
 
     @torch.no_grad()
     def detect(images: torch.Tensor):
-        raw = model(images)
-        boxes, scores, kpts = decode_predictions(raw, model.img_size, model.num_keypoints)
+        boxes, scores, kpts = decode_with_tta(model, images, tta_flip)
         out_boxes, out_scores, valid, anchor_idx = batched_nms(
-            boxes, scores, conf_thresh, iou_thresh, max_detections)
+            boxes, scores, conf_thresh, iou_thresh, max_detections, method=nms_method)
         if kpts is None:
             return out_boxes, out_scores, valid
         idx = anchor_idx.to(torch.int64)[..., None, None].expand(-1, -1, *kpts.shape[2:])
@@ -268,9 +399,6 @@ def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int 
 
     d = config.get("detector", {})
     dev = resolve_device(device)
-    if str(d.get("head_variant", "anchor_free")) != "anchor_free":
-        raise NotImplementedError(
-            "detector.head_variant 'v8dfl' is not ported yet: ROADMAP.md, deferred items")
     if d.get("quantized"):
         raise NotImplementedError(
             "detector.quantized (int8) is not ported yet: ROADMAP.md module queue, item 13")
@@ -280,6 +408,9 @@ def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int 
         width_mult=float(d.get("width_mult", 0.75)),
         depth_mult=float(d.get("depth_mult", 0.67)),
         num_keypoints=int(d.get("num_keypoints", 17)) if d.get("pose_head") else 0,
+        head_variant=str(d.get("head_variant", "anchor_free")),
+        num_classes=int(d.get("num_classes", 80)),
+        reg_max=int(d.get("reg_max", 16)),
         channel_divisor=int(d.get("channel_divisor", 8)),
         dtype=dtype,
     )

@@ -10,6 +10,12 @@ from cvsd_tpu_torch.ops.nms import (  # noqa: F401
     nms_fixpoint,
     nms_fixpoint_cuda,
     nms_fixpoint_torch,
+    nms_seq,
+    nms_seq_cuda,
+    nms_seq_multi,
+    nms_seq_multi_cuda,
+    nms_seq_multi_torch,
+    nms_seq_torch,
     nms_torch,
     suppress_torch,
 )

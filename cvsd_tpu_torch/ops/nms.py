@@ -1,12 +1,14 @@
 """Non-maximum suppression with static shapes (PyTorch port of
-``cvsd_tpu/ops/nms.py``), with a hand-written CUDA kernel for the fixpoint.
+``cvsd_tpu/ops/nms.py``), with hand-written CUDA kernels for the greedy mask.
 
 1. confidence mask + per-image top-K candidate prefilter (stable sort, so
    equal scores keep the lower anchor first, as ``lax.top_k`` does)
-2. greedy suppression over the K score-sorted candidates. ``nms_fixpoint``
-   runs the Jacobi fixpoint (exactly greedy NMS, see ``nms_fixpoint_torch``):
-   on a CUDA tensor through the kernel in ``csrc/nms_fixpoint.cu``, on a CPU
-   tensor through the plain PyTorch version.
+2. greedy suppression over the K score-sorted candidates, by ``method``:
+   ``pallas_fixpoint`` (default) runs the Jacobi fixpoint (exactly greedy
+   NMS, see ``nms_fixpoint_torch``) through ``csrc/nms_fixpoint.cu``;
+   ``pallas_seq`` runs the sequential greedy loop through
+   ``csrc/nms_seq.cu``. Each kernel runs on a CUDA tensor; a CPU tensor goes
+   through the kernel's plain PyTorch version.
 3. fixed ``max_detections`` output with a validity mask
 """
 
@@ -19,7 +21,21 @@ import torch
 
 from cvsd_tpu_torch.ops.iou import box_iou_matrix
 
-MAX_KERNEL_K = 1024  # one CUDA thread per candidate
+MAX_KERNEL_K = 1024  # one CUDA thread (or lane slot) per candidate
+# The reference's other methods ('fixpoint', 'xla') are plain XLA there and
+# would be plain PyTorch here: the port keeps only the kernel methods.
+KERNEL_METHODS = ("pallas_fixpoint", "pallas_seq")
+
+
+def check_nms_method(method: str) -> None:
+    """Raise unless ``method`` names one of the port's kernel NMS methods."""
+    if method in KERNEL_METHODS:
+        return
+    if method in ("fixpoint", "xla"):
+        raise NotImplementedError(
+            f"detector.nms_method {method!r} is not ported: the port runs 'pallas_fixpoint' "
+            "and 'pallas_seq' (the CUDA kernels); ROADMAP.md, 'TPU kernels to port'")
+    raise ValueError(f"unknown NMS method: {method!r}")
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -78,54 +94,137 @@ def nms_fixpoint_torch(boxes: torch.Tensor, alive: torch.Tensor,
     return a.reshape(B, K) > 0.5
 
 
+def nms_seq_torch(boxes: torch.Tensor, alive: torch.Tensor,
+                  iou_thresh: float = 0.45) -> torch.Tensor:
+    """Batched sequential greedy NMS -> keep mask (B, K) float32 0/1, as
+    ``nms_pallas`` returns it; a candidate is alive where ``alive > 0.5``.
+    The plain version of ``nms_seq_cuda``.
+
+    ``nms_pallas`` returns the unsuppressed entries of ``alive`` as given, so
+    the two agree only where ``alive`` is 0/1, as ``batched_nms`` passes it:
+    an entry of 0.3 is dead in both, but ``nms_pallas`` returns 0.3 and this
+    returns 0."""
+    b = boxes.to(torch.float32)
+    return suppress_torch(box_iou_matrix(b, b), alive > 0.5, iou_thresh).to(torch.float32)
+
+
+def nms_seq_multi_torch(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45,
+                        group: int = 8) -> torch.Tensor:
+    """``nms_pallas_multi``'s keep mask (B, K) float32: grouping images
+    changes nothing in the mask. The plain version of ``nms_seq_multi_cuda``.
+    Like ``nms_seq_torch`` it returns 0/1, where ``nms_pallas_multi`` returns
+    the unsuppressed entries of ``alive`` as given (equal for a 0/1 ``alive``)."""
+    del group
+    return nms_seq_torch(boxes, alive, iou_thresh)
+
+
+def _check_inputs(name: str, boxes: torch.Tensor, alive: torch.Tensor) -> Tuple[int, int]:
+    """The checks every NMS kernel wrapper makes before a launch -> (B, K)."""
+    if boxes.device.type != "cuda" or alive.device != boxes.device:
+        raise ValueError(f"{name} needs boxes and alive on one CUDA device, "
+                         f"got {boxes.device} and {alive.device}")
+    if boxes.dtype != torch.float32 or alive.dtype != torch.float32:
+        raise TypeError(f"{name} needs float32, got {boxes.dtype}, {alive.dtype}")
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or tuple(alive.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"{name} needs boxes (B, K, 4) and alive (B, K), got "
+                         f"{tuple(boxes.shape)} and {tuple(alive.shape)}")
+    if not (boxes.is_contiguous() and alive.is_contiguous()) or boxes.data_ptr() % 16:
+        raise ValueError(f"{name} needs contiguous, 16-byte aligned inputs")
+    B, K = int(boxes.shape[0]), int(boxes.shape[1])
+    if K > MAX_KERNEL_K:
+        raise ValueError(f"{name} supports K <= {MAX_KERNEL_K}, got K={K}")
+    return B, K
+
+
+# argument types of each library's launcher (after the three data pointers,
+# the stream comes last) and of its shared-memory query
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LAUNCHERS = {
+    "nms_fixpoint": {"cvsd_nms_fixpoint": [_P, _P, _P, _I, _I, _F, _P],
+                     "cvsd_nms_fixpoint_smem_bytes": [_I]},
+    "nms_seq": {"cvsd_nms_seq": [_P, _P, _P, _I, _I, _F, _P],
+                "cvsd_nms_seq_multi": [_P, _P, _P, _I, _I, _I, _F, _P],
+                "cvsd_nms_seq_smem_bytes": [_I],
+                "cvsd_nms_seq_multi_smem_bytes": [_I, _I]},
+}
+
+
+def kernel_lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded, with its launchers' signatures."""
+    from cvsd_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load(name)
+    for fn, argtypes in _LAUNCHERS[name].items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = argtypes
+            f.restype = ctypes.c_longlong if fn.endswith("smem_bytes") else ctypes.c_int
+    return lib
+
+
+def _launch(name: str, fn: str, boxes: torch.Tensor, alive: torch.Tensor, keep: torch.Tensor,
+            *args) -> None:
+    from cvsd_tpu_torch.utils import cuda_build
+
+    lib = kernel_lib(name)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    err = getattr(lib, fn)(boxes.data_ptr(), alive.data_ptr(), keep.data_ptr(), *args, stream)
+    cuda_build.check(lib, err, f"{fn} kernel launch")
+
+
 def nms_fixpoint_cuda(boxes: torch.Tensor, alive: torch.Tensor,
                       iou_thresh: float = 0.45) -> torch.Tensor:
     """Launch ``csrc/nms_fixpoint.cu`` on the current stream.
     boxes (B, K, 4) float32 and alive (B, K) float32 0/1, both contiguous on
     one CUDA device; K <= 1024. Returns keep (B, K) bool. Raises on anything
     else; never falls back to the plain version."""
-    from cvsd_tpu_torch.utils import cuda_build
-
-    if boxes.device.type != "cuda" or alive.device != boxes.device:
-        raise ValueError(f"nms_fixpoint_cuda needs boxes and alive on one CUDA device, "
-                         f"got {boxes.device} and {alive.device}")
-    if boxes.dtype != torch.float32 or alive.dtype != torch.float32:
-        raise TypeError(f"nms_fixpoint_cuda needs float32, got {boxes.dtype}, {alive.dtype}")
-    if boxes.dim() != 3 or boxes.shape[2] != 4 or tuple(alive.shape) != tuple(boxes.shape[:2]):
-        raise ValueError(f"nms_fixpoint_cuda needs boxes (B, K, 4) and alive (B, K), got "
-                         f"{tuple(boxes.shape)} and {tuple(alive.shape)}")
-    if not (boxes.is_contiguous() and alive.is_contiguous()) or boxes.data_ptr() % 16:
-        raise ValueError("nms_fixpoint_cuda needs contiguous, 16-byte aligned inputs")
-    B, K = int(boxes.shape[0]), int(boxes.shape[1])
-    if K > MAX_KERNEL_K:
-        raise ValueError(f"nms_fixpoint_cuda supports K <= {MAX_KERNEL_K}, got K={K}")
+    B, K = _check_inputs("nms_fixpoint_cuda", boxes, alive)
     keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
     if B == 0 or K == 0:
         return keep
-    lib = _nms_lib()
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = lib.cvsd_nms_fixpoint(boxes.data_ptr(), alive.data_ptr(), keep.data_ptr(),
-                                B, K, float(iou_thresh), stream)
-    cuda_build.check(lib, err, "nms_fixpoint kernel launch")
+    _launch("nms_fixpoint", "cvsd_nms_fixpoint", boxes, alive, keep, B, K, float(iou_thresh))
     nms_fixpoint_cuda.launches += 1
     return keep
 
 
-nms_fixpoint_cuda.launches = 0  # kernel launches made by this wrapper
+def nms_seq_cuda(boxes: torch.Tensor, alive: torch.Tensor,
+                 iou_thresh: float = 0.45) -> torch.Tensor:
+    """Launch ``nms_seq_kernel`` of ``csrc/nms_seq.cu`` (one CTA per image)
+    on the current stream. Inputs as ``nms_fixpoint_cuda``'s. Returns keep
+    (B, K) float32 0/1. Raises on anything else; never falls back."""
+    B, K = _check_inputs("nms_seq_cuda", boxes, alive)
+    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
+    if B == 0 or K == 0:
+        return keep
+    _launch("nms_seq", "cvsd_nms_seq", boxes, alive, keep, B, K, float(iou_thresh))
+    nms_seq_cuda.launches += 1
+    return keep
 
 
-def _nms_lib() -> ctypes.CDLL:
-    from cvsd_tpu_torch.utils import cuda_build
+def nms_seq_multi_cuda(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45,
+                       group: int = 8) -> torch.Tensor:
+    """Launch ``nms_seq_multi_kernel`` of ``csrc/nms_seq.cu`` (``group``
+    images per CTA, one warp each; B is not padded) on the current stream.
+    Inputs as ``nms_fixpoint_cuda``'s, and 1 <= group <= 32. Returns keep
+    (B, K) float32 0/1. A group whose images' boxes do not fit one CTA's
+    shared memory (``cvsd_nms_seq_multi_smem_bytes``) makes the launcher
+    fail, and this raises."""
+    B, K = _check_inputs("nms_seq_multi_cuda", boxes, alive)
+    G = int(group)
+    if not 1 <= G <= 32:
+        raise ValueError(f"nms_seq_multi_cuda needs 1 <= group <= 32, got group={G}")
+    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
+    if B == 0 or K == 0:
+        return keep
+    _launch("nms_seq", "cvsd_nms_seq_multi", boxes, alive, keep, B, K, G, float(iou_thresh))
+    nms_seq_multi_cuda.launches += 1
+    return keep
 
-    lib = cuda_build.load("nms_fixpoint")
-    if lib.cvsd_nms_fixpoint.argtypes is None:
-        lib.cvsd_nms_fixpoint.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                          ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                          ctypes.c_void_p]
-        lib.cvsd_nms_fixpoint.restype = ctypes.c_int
-        lib.cvsd_nms_fixpoint_smem_bytes.argtypes = [ctypes.c_int]
-        lib.cvsd_nms_fixpoint_smem_bytes.restype = ctypes.c_longlong
-    return lib
+
+# kernel launches made by each wrapper
+nms_fixpoint_cuda.launches = 0
+nms_seq_cuda.launches = 0
+nms_seq_multi_cuda.launches = 0
 
 
 def nms_fixpoint(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45) -> torch.Tensor:
@@ -134,6 +233,23 @@ def nms_fixpoint(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0
     if boxes.device.type == "cpu":
         return nms_fixpoint_torch(boxes, alive, iou_thresh)
     return nms_fixpoint_cuda(boxes, alive, iou_thresh)
+
+
+def nms_seq(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45) -> torch.Tensor:
+    """Sequential greedy keep mask (B, K) float32 0/1: the CUDA kernel for
+    CUDA tensors, the plain PyTorch version for CPU tensors."""
+    if boxes.device.type == "cpu":
+        return nms_seq_torch(boxes, alive, iou_thresh)
+    return nms_seq_cuda(boxes, alive, iou_thresh)
+
+
+def nms_seq_multi(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45,
+                  group: int = 8) -> torch.Tensor:
+    """Grouped sequential greedy keep mask (B, K) float32 0/1: the CUDA
+    kernel for CUDA tensors, the plain PyTorch version for CPU tensors."""
+    if boxes.device.type == "cpu":
+        return nms_seq_multi_torch(boxes, alive, iou_thresh, group)
+    return nms_seq_multi_cuda(boxes, alive, iou_thresh, group)
 
 
 def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,18 +276,24 @@ def batched_nms(
     iou_thresh: float = 0.45,
     max_detections: int = 128,
     pre_topk: int = 256,
+    method: str = "pallas_fixpoint",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full detection postprocess: conf mask -> top-K -> greedy NMS ->
     fixed-size (boxes, scores, valid, anchor_idx) outputs. The keep mask is
-    ``nms_fixpoint``'s: the CUDA kernel on the card, its plain version on the
-    CPU.
+    ``nms_fixpoint``'s (method 'pallas_fixpoint') or ``nms_seq``'s
+    ('pallas_seq'): the CUDA kernel on the card, its plain version on the
+    CPU. Both are the same greedy mask.
 
     Returns boxes (B, M, 4), scores (B, M), valid (B, M) bool, anchor_idx
     (B, M) int32 into the A anchors (0 where invalid); M = max_detections."""
+    check_nms_method(method)
     top_scores, top_idx, cand_boxes, init_alive = prefilter(boxes, scores, conf_thresh, pre_topk)
     K = top_scores.shape[1]
-    keep = nms_fixpoint(cand_boxes.to(torch.float32).contiguous(),
-                        init_alive.to(torch.float32), iou_thresh)
+    cand = cand_boxes.to(torch.float32).contiguous()
+    if method == "pallas_seq":
+        keep = nms_seq(cand, init_alive.to(torch.float32), iou_thresh) > 0.5
+    else:
+        keep = nms_fixpoint(cand, init_alive.to(torch.float32), iou_thresh)
 
     neg_inf = torch.tensor(float("-inf"), dtype=top_scores.dtype, device=top_scores.device)
     final_scores = torch.where(keep & init_alive, top_scores, neg_inf)

@@ -1,6 +1,8 @@
-"""Batched detection pipeline: uint8 frames -> letterbox -> detector -> decode
--> fixpoint NMS -> boxes in source pixels + normalized xywh (PyTorch port of
-``DetectionPipeline`` in ``cvsd_tpu/pipeline/preprocess.py``).
+"""Batched detection pipeline: uint8 frames -> letterbox -> detector (with
+optional flip-TTA) -> decode -> kernel NMS -> boxes in source pixels +
+normalized xywh [+ keypoints from the detector's pose head or, with
+``detector.pose_mode: topdown``, from the top-down crop pose net] (PyTorch
+port of ``DetectionPipeline`` in ``cvsd_tpu/pipeline/preprocess.py``).
 
 Three input modes, as in the reference:
   device  — (B, H, W, 3) source frames, letterboxed on the device (default)
@@ -14,6 +16,7 @@ The UCF-Crime CSV preprocessing of the reference module is not ported yet
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,36 +24,52 @@ import torch
 import torch.nn.functional as F
 
 from cvsd_tpu_torch.models.detector import PersonDetector, build_detector, make_detect_fn
+from cvsd_tpu_torch.models.pose_topdown import (TopDownPoseNet, build_pose_topdown,
+                                                pose_from_boxes)
 from cvsd_tpu_torch.ops.iou import xyxy_to_xywhn
+from cvsd_tpu_torch.ops.nms import check_nms_method
 from cvsd_tpu_torch.ops.letterbox import (PAD_VALUE, letterbox_batch, letterbox_params,
                                           unletterbox_boxes)
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 class DetectionPipeline:
-    """Detector + fused pre/postprocess on one device."""
+    """Detector + fused pre/postprocess on one device.
+
+    ``pose_model``: a TopDownPoseNet carrying its weights; its keypoints
+    replace the detector head's. ``detector.pose_mode: topdown`` without one
+    builds a seeded random net (``seed + 1``) and warns, as the reference
+    does."""
 
     def __init__(self, config: Dict[str, Any], state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  seed: int = 0, device: DeviceLike = None,
-                 mesh_config: Optional[Any] = None, pose_model: Optional[Any] = None):
+                 mesh_config: Optional[Any] = None,
+                 pose_model: Optional[TopDownPoseNet] = None):
         if mesh_config is not None:
             raise NotImplementedError(
                 "mesh_config (data-parallel detection) is not ported yet: ROADMAP.md "
                 "module queue, item 14")
         d = config.get("detector", {})
-        if str(d.get("pose_mode", "head")) == "topdown" or pose_model is not None:
-            raise NotImplementedError(
-                "detector.pose_mode 'topdown' is not ported yet: ROADMAP.md module queue, item 7")
         nms_method = str(d.get("nms_method", "pallas_fixpoint"))
-        if nms_method != "pallas_fixpoint":
-            # the reference's other methods compute the same keep mask; the
-            # port keeps only the kernel path ('pallas_seq' is _nms_kernel)
+        check_nms_method(nms_method)
+        pose_mode = str(d.get("pose_mode", "head"))
+        if pose_mode == "topdown" and pose_model is None and d.get("pose_topdown_checkpoint"):
             raise NotImplementedError(
-                f"detector.nms_method {nms_method!r} is not ported: the port runs "
-                "'pallas_fixpoint' (the CUDA fixpoint kernel); ROADMAP.md, 'TPU kernels to port'")
+                "detector.pose_topdown_checkpoint needs the msgpack checkpoint reader, which "
+                "is not ported yet: ROADMAP.md, deferred items; pass pose_model instead")
         self.config = config
         self.device = resolve_device(device)
         self.model: PersonDetector = build_detector(config, self.device, seed, state_dict)
+        if pose_model is not None:
+            pose_model = pose_model.to(self.device).eval()
+        elif pose_mode == "topdown":
+            warnings.warn(
+                "detector.pose_mode='topdown' with no pose_topdown_checkpoint and no "
+                "pose_model: instantiating a RANDOMLY-INITIALIZED TopDownPoseNet — keypoints "
+                "will be garbage. Pass pose_model (a TopDownPoseNet carrying its weights).",
+                RuntimeWarning)
+            pose_model = build_pose_topdown(config, self.device, seed + 1)
+        self.pose_model = pose_model
         self.conf = float(d.get("conf_threshold", 0.25))
         if str(d.get("tracker", "iou")) == "byte":
             # ByteTrack's stage-2 rescue needs the LOW-confidence boxes the
@@ -70,7 +89,7 @@ class DetectionPipeline:
         self.fetch_group = max(1, int(d.get("fetch_group", 4)))
         self.tta_flip = bool(d.get("tta_flip", False))
         self._detect = make_detect_fn(self.model, self.conf, self.iou, self.max_det,
-                                      tta_flip=self.tta_flip)
+                                      nms_method=nms_method, tta_flip=self.tta_flip)
 
     def _canvas_size(self, src_h: int, src_w: int) -> int:
         if not self.auto_size:
@@ -97,7 +116,14 @@ class DetectionPipeline:
         boxes_lb, scores, valid = out[0], out[1], out[2]
         boxes_src = unletterbox_boxes(boxes_lb, src_h, src_w, size)
         xywhn = xyxy_to_xywhn(boxes_src, float(src_w), float(src_h))
-        return (boxes_src, xywhn, scores, valid) + tuple(out[3:])
+        res = (boxes_src, xywhn, scores, valid)
+        if self.pose_model is not None:
+            # top-down pose on the canvas crops: the crops sample the canvas
+            # the detector saw (already rounded to its dtype), in float32
+            kpts, _ = pose_from_boxes(self.pose_model, images.to(torch.float32),
+                                      boxes_lb.to(torch.float32))
+            return res + (kpts,)
+        return res + tuple(out[3:])
 
     def _host_letterbox_batch(self, frames: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 source frames -> canvas (or content) uint8 on the

@@ -53,6 +53,7 @@ def test_default_device_raises_without_cuda():
         from cvsd_tpu_torch.config import get_default_config
         from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
         from cvsd_tpu_torch.models.detector import build_detector
+        from cvsd_tpu_torch.models.pose_topdown import build_pose_topdown
         from cvsd_tpu_torch.models.shopformer import build_shopformer
         from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
         from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
@@ -62,6 +63,7 @@ def test_default_device_raises_without_cuda():
         scorer = ShopformerScorer(cpu_model, cfg, device="cpu")
         calls = {
             "build_detector": lambda: build_detector(cfg),
+            "build_pose_topdown": lambda: build_pose_topdown(cfg),
             "build_shopformer": lambda: build_shopformer(cfg),
             "DetectionPipeline": lambda: DetectionPipeline(cfg),
             "ShopformerScorer": lambda: ShopformerScorer(cpu_model, cfg),
@@ -78,7 +80,7 @@ def test_default_device_raises_without_cuda():
     """)
     assert r.returncode == 0, r.stderr
     assert "FELL_BACK" not in r.stdout, r.stdout
-    assert r.stdout.count("RAISED") == 5, r.stdout
+    assert r.stdout.count("RAISED") == 6, r.stdout
 
 
 def test_nms_cuda_wrapper_refuses_cpu_tensors():

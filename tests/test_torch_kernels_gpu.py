@@ -65,3 +65,62 @@ def test_nms_fixpoint_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         nms_fixpoint_cuda(torch.zeros(1, 8, 4, device=cuda)[:, ::2],
                           torch.ones(1, 4, device=cuda))
+
+
+@pytest.mark.parametrize("B,K,group", [(128, 256, 8), (3, 84, 8), (5, 256, 2), (2, 1024, 8),
+                                       (1, 1, 1), (7, 33, 32)])
+def test_nms_seq_kernels_bit_exact(cuda, B, K, group):
+    """Both sequential kernels equal their plain version bit for bit, and the
+    fixpoint kernel gives the same mask; ragged K and a ragged last group."""
+    from cvsd_tpu_torch.ops.nms import (nms_fixpoint_cuda, nms_seq_cuda, nms_seq_multi_cuda,
+                                        nms_seq_multi_torch, nms_seq_torch)
+
+    rng = np.random.default_rng(B * 1000 + K + 7)
+    boxes = torch.from_numpy(_boxes(rng, B, K, 100.0, 300.0)).to(cuda)
+    alive = torch.from_numpy((rng.uniform(size=(B, K)) > 0.1).astype(np.float32)).to(cuda)
+    before = (nms_seq_cuda.launches, nms_seq_multi_cuda.launches)
+    keep = nms_seq_cuda(boxes, alive, 0.45)
+    multi = nms_seq_multi_cuda(boxes, alive, 0.45, group)
+    fix = nms_fixpoint_cuda(boxes, alive, 0.45)
+    torch.cuda.synchronize()
+    assert (nms_seq_cuda.launches, nms_seq_multi_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert keep.dtype == multi.dtype == torch.float32
+    assert torch.equal(keep, nms_seq_torch(boxes, alive, 0.45))
+    assert torch.equal(multi, nms_seq_multi_torch(boxes, alive, 0.45, group))
+    assert torch.equal(fix, keep > 0.5)
+
+
+def test_nms_seq_kernels_chain(cuda):
+    from cvsd_tpu_torch.ops.nms import nms_seq_cuda, nms_seq_multi_cuda
+
+    K = 256
+    boxes = torch.zeros(3, K, 4)
+    boxes[:, :, 0] = torch.arange(K) * 6.0
+    boxes[:, :, 2] = boxes[:, :, 0] + 10.0
+    boxes[:, :, 3] = 10.0
+    want = [float(i % 2 == 0) for i in range(K)]
+    for keep in (nms_seq_cuda(boxes.to(cuda), torch.ones(3, K, device=cuda), 0.2),
+                 nms_seq_multi_cuda(boxes.to(cuda), torch.ones(3, K, device=cuda), 0.2, 2)):
+        assert all(row == want for row in keep.cpu().tolist())
+
+
+def test_nms_seq_kernels_reject_bad_inputs(cuda):
+    from cvsd_tpu_torch.ops.nms import nms_seq_cuda, nms_seq_multi_cuda
+
+    for fn in (nms_seq_cuda, nms_seq_multi_cuda):
+        with pytest.raises(ValueError, match="K <= 1024"):
+            fn(torch.zeros(1, 1025, 4, device=cuda), torch.ones(1, 1025, device=cuda))
+        with pytest.raises(TypeError):
+            fn(torch.zeros(1, 8, 4, device=cuda, dtype=torch.float64), torch.ones(1, 8, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1, 8, 4, device=cuda)[:, ::2], torch.ones(1, 4, device=cuda))
+    for group in (0, 33):
+        with pytest.raises(ValueError, match="group"):
+            nms_seq_multi_cuda(torch.zeros(1, 8, 4, device=cuda), torch.ones(1, 8, device=cuda),
+                               group=group)
+    # 32 * 1024 * 20 B of shared memory per CTA: the launcher refuses it
+    before = nms_seq_multi_cuda.launches
+    with pytest.raises(RuntimeError, match="cvsd_nms_seq_multi kernel launch: CUDA error"):
+        nms_seq_multi_cuda(torch.zeros(1, 1024, 4, device=cuda), torch.ones(1, 1024, device=cuda),
+                           group=32)
+    assert nms_seq_multi_cuda.launches == before

@@ -148,18 +148,30 @@ def test_prefilter_stable_on_ties():
 
 def _pipeline_with_nms_method(method):
     cfg = get_default_config()
-    cfg["detector"]["nms_method"] = method
+    cfg["detector"].update(nms_method=method, img_size=64, width_mult=0.25, depth_mult=0.34,
+                           dtype="float32")
     return DetectionPipeline(cfg, device="cpu")
 
 
-def test_pallas_seq_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _pipeline_with_nms_method("pallas_seq")
+def test_pallas_seq_is_accepted():
+    """'pallas_seq' (the sequential kernel, csrc/nms_seq.cu) builds a pipeline
+    whose detections equal the default 'pallas_fixpoint' pipeline's: both
+    compute the same greedy mask."""
+    frames = np.random.default_rng(5).integers(0, 256, (2, 48, 64, 3)).astype(np.uint8)
+    seq = _pipeline_with_nms_method("pallas_seq").detect_frames(frames)
+    fix = _pipeline_with_nms_method("pallas_fixpoint").detect_frames(frames)
+    for s, f in zip(seq, fix):
+        np.testing.assert_array_equal(s, f)
 
 
-@pytest.mark.parametrize("method", ["fixpoint", "xla", "bogus"])
+@pytest.mark.parametrize("method", ["fixpoint", "xla"])
 def test_only_the_kernel_nms_method_is_accepted(method):
-    """Only 'pallas_fixpoint' (the CUDA kernel) is ported; the pipeline
-    refuses every other NMS method before building a model."""
+    """Only the kernel methods ('pallas_fixpoint', 'pallas_seq') are ported;
+    the pipeline refuses the plain-XLA ones before building a model."""
     with pytest.raises(NotImplementedError, match="pallas_fixpoint"):
         _pipeline_with_nms_method(method)
+
+
+def test_unknown_nms_method_raises():
+    with pytest.raises(ValueError, match="unknown NMS method"):
+        _pipeline_with_nms_method("bogus")

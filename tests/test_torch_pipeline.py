@@ -102,6 +102,7 @@ def test_unported_pipeline_options_raise():
     cfg["detector"].update(DET)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DetectionPipeline(cfg, device="cpu", mesh_config=object())
-    cfg["detector"]["pose_mode"] = "topdown"
+    # topdown pose is ported; its checkpoint needs the msgpack reader
+    cfg["detector"].update(pose_mode="topdown", pose_topdown_checkpoint="pose.msgpack")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DetectionPipeline(cfg, device="cpu")
