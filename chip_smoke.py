@@ -5,14 +5,17 @@
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
-     kernels built by nvcc from csrc/ (registers / shared memory printed)
+     kernels built by nvcc from csrc/ (registers, spills and shared memory
+     printed)
   2. kernel vs plain: the three NMS kernels (fixpoint, sequential, grouped
-     sequential) bit-exact against their plain PyTorch versions on six cases
-     at B=128, K=256 and at ragged K=84, the sequential pair also at B=5 with
-     a ragged last group of 8; all three give one mask
+     sequential) bit-exact against their plain PyTorch versions on seven
+     cases (one with IoUs within 2 ulps of the threshold) at B=128, K=256 and
+     at ragged K=84, the sequential pair also at B=5 with a ragged last group
+     of 8; all three give one mask
   3. detect: DetectionPipeline at full width (v5m scale, 640 canvas, bf16,
      pose head) on B=128 320x240 uint8 frames; the kernel timed on the main
-     path's candidates and on two cases that need many fixpoint steps; then
+     path's candidates and on two cases that need many fixpoint steps (device
+     time from CUDA-graph replay, beside the time per wrapper call); then
      float32 at full width on the card and on the CPU with the same weights
   3b. detect, slice 2 (SLICE2: v8dfl head, flip TTA, top-down pose,
      pallas_seq) on the same frames; both sequential kernels timed on its
@@ -122,6 +125,35 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, launches: int = 200, replays: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn`` (a kernel wrapper):
+    ``launches`` calls captured in one CUDA graph, the graph replayed between
+    CUDA events, so the wrapper's host work (input checks, allocation, the
+    ctypes call) is not timed, only the kernels and the gaps between graph
+    nodes. The captured calls count as launches: callers restore the counts."""
+    for _ in range(5):
+        fn()
+    side = torch.cuda.Stream()  # warm-up off the default stream before capture
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
 def max_rel(got: np.ndarray, ref: np.ndarray) -> float:
     return float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-6)))
 
@@ -160,6 +192,59 @@ def render_frames(num_frames: int, width: int, height: int, seed: int) -> np.nda
 # NMS helpers: test cases, data-dependent work, bound
 
 
+NEAR_THRESH = 0.45  # near_threshold_boxes builds IoUs around float32(0.45)
+
+
+def near_threshold_boxes(rng, B: int, K: int) -> np.ndarray:
+    """(B, K, 4) float32 boxes in pairs (2p, 2p+1) whose float32 IoU, in the
+    reference's operation order, is float32(0.45) or 1 or 2 ulps from it
+    (an odd last box stands alone). A pair is a = [0, y, 15/16 w, y+h] and
+    b = [x1, y, w, y+h], with w and h powers of two: the union is w*h exactly
+    and the IoU is the intersection scaled by a power of two, exact whatever
+    division computes it (XLA's CPU division of large arrays is not correctly
+    rounded). x1 = 15/16 w - 0.45 w exactly, then stepped 0 to 2 times up or
+    down by np.nextafter, moves the IoU by one ulp a step. Pairs sit one
+    above another along y, so no two overlap; every other image is
+    transposed."""
+    P = K // 2
+    w = (2.0 ** rng.integers(5, 10, (B, P))).astype(np.float32)
+    h = (2.0 ** rng.integers(0, 6, (B, P))).astype(np.float32)
+    y = np.broadcast_to(np.arange(P, dtype=np.float32) * 40, (B, P))
+    x2a = w * np.float32(15 / 16)
+    x1 = x2a - np.float32(NEAR_THRESH) * w
+    steps = rng.integers(-2, 3, (B, P))
+    for k in (1, 2):
+        x1 = np.where(steps >= k, np.nextafter(x1, np.float32(np.inf)), x1)
+        x1 = np.where(steps <= -k, np.nextafter(x1, np.float32(-np.inf)), x1)
+    a = np.stack([np.zeros_like(w), y, x2a, y + h], -1)
+    b = np.stack([x1, y, w, y + h], -1)
+    union, ulps = _union_and_ulps(a, b)
+    if not (np.array_equal(union, w * h) and np.abs(ulps).max() <= 2):
+        raise AssertionError("a near-threshold pair is not as built")
+    out = np.zeros((B, K, 4), np.float32)
+    out[:, 0 : 2 * P : 2], out[:, 1 : 2 * P : 2] = a, b
+    if K % 2:
+        out[:, -1] = [-40.0, -40.0, -20.0, -20.0]
+    out[1::2] = out[1::2][..., [1, 0, 3, 2]]
+    return out
+
+
+def _union_and_ulps(a: np.ndarray, b: np.ndarray):
+    """The float32 union of boxes a and b, and their IoU's signed ulps from
+    float32(0.45), in the reference's operation order."""
+    f = np.float32
+
+    def area(x):
+        return np.maximum(x[..., 2] - x[..., 0], f(0)) * np.maximum(x[..., 3] - x[..., 1], f(0))
+
+    ix = np.maximum(np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]), f(0))
+    iy = np.maximum(np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]), f(0))
+    inter = ix * iy
+    union = (area(a) + area(b)) - inter
+    iou = inter / np.maximum(union, f(1e-9))
+    return union, iou.view(np.int32).astype(np.int64) - int(f(NEAR_THRESH).view(np.int32))
+
+
 def nms_cases(B: int, K: int, device):
     rng = np.random.default_rng(B * 7919 + K)
 
@@ -185,6 +270,7 @@ def nms_cases(B: int, K: int, device):
         "chain": (chain, ones, 0.2),
         "all_overlap": (over, ones, 0.5),
         "zero_area": (zero, ones, 0.45),
+        "near_threshold": (near_threshold_boxes(rng, B, K), ones, NEAR_THRESH),
     }
     return {name: (torch.from_numpy(b).to(device), torch.from_numpy(a).to(device), t)
             for name, (b, a, t) in cases.items()}
@@ -293,6 +379,29 @@ def check_seq_kernels(nms_mod, label: str, boxes, alive, t: float, group: int = 
     return int(seq.sum())
 
 
+def check_kernels(nms_mod, dev) -> dict:
+    """The three kernels bit-exact against their plain versions on every
+    case of ``nms_cases`` at B=128 (K=256 and K=84) and, for the sequential
+    pair, at B=5 with a ragged last group of 8. Returns the K=256 cases."""
+    cases_256 = nms_cases(128, 256, dev)
+    cases_84 = nms_cases(128, 84, dev)
+    for K, cases in ((256, cases_256), (84, cases_84)):
+        for name, (boxes, alive, t) in cases.items():
+            keep = nms_mod.nms_fixpoint_cuda(boxes, alive, t)
+            torch.cuda.synchronize()
+            ref = nms_mod.nms_fixpoint_torch(boxes, alive, t)
+            if not torch.equal(keep, ref):
+                bad = int((keep != ref).sum())
+                fail(f"nms_fixpoint kernel != plain on {name} B=128 K={K}: {bad} entries")
+            kept = check_seq_kernels(nms_mod, f"{name} B=128 K={K}", boxes, alive, t)
+            ragged = check_seq_kernels(nms_mod, f"{name} B=5 K={K} group 8",
+                                       boxes[:5].contiguous(), alive[:5].contiguous(), t)
+            log(f"[kernel] nms_fixpoint, nms_seq, nms_seq_multi {name:14s} K={K}: bit-exact at "
+                f"B=128 ({kept} kept) and the sequential pair at B=5 with group 8 ({ragged} "
+                f"kept); one mask")
+    return cases_256
+
+
 COUNTED = ("nms_fixpoint_cuda", "nms_seq_cuda", "nms_seq_multi_cuda")
 
 
@@ -356,25 +465,7 @@ def main() -> None:
     kernel_fn = nms_mod.nms_fixpoint_cuda
 
     # -- 2. kernel vs plain --------------------------------------------------
-    cases_256 = nms_cases(128, 256, dev)
-    for B, K in ((128, 256), (128, 84)):
-        for name, (boxes, alive, t) in (cases_256 if K == 256 else nms_cases(B, K, dev)).items():
-            keep = kernel_fn(boxes, alive, t)
-            torch.cuda.synchronize()
-            ref = nms_mod.nms_fixpoint_torch(boxes, alive, t)
-            if not torch.equal(keep, ref):
-                bad = int((keep != ref).sum())
-                fail(f"nms_fixpoint kernel != plain on {name} B={B} K={K}: {bad} entries")
-            log(f"[kernel] nms_fixpoint {name:12s} B={B} K={K}: bit-exact "
-                f"({int(keep.sum())} kept)")
-    cases_84 = nms_cases(128, 84, dev)
-    for K, cases in ((256, cases_256), (84, cases_84)):
-        for name, (boxes, alive, t) in cases.items():
-            kept = check_seq_kernels(nms_mod, f"{name} B=128 K={K}", boxes, alive, t)
-            ragged = check_seq_kernels(nms_mod, f"{name} B=5 K={K} group 8",
-                                       boxes[:5].contiguous(), alive[:5].contiguous(), t)
-            log(f"[kernel] nms_seq, nms_seq_multi {name:12s} K={K}: bit-exact at B=128 "
-                f"({kept} kept) and at B=5 with group 8 ({ragged} kept); == nms_fixpoint")
+    cases_256 = check_kernels(nms_mod, dev)
 
     # -- 3. detect at full width ---------------------------------------------
     cfg = get_default_config()
@@ -429,13 +520,15 @@ def main() -> None:
         fail("nms_fixpoint kernel != plain on the main path's candidates")
     max_abs_err = float((keep.to(torch.float32) - ref.to(torch.float32)).abs().max())
     saved = kernel_fn.launches
-    nms_ms = cuda_ms(lambda: kernel_fn(cand, alive_f, pipe.iou), iters=200, warmup=20)
+    nms_ms = device_ms(lambda: kernel_fn(cand, alive_f, pipe.iou))
+    call_ms = cuda_ms(lambda: kernel_fn(cand, alive_f, pipe.iou), iters=200, warmup=20)
     plain_ms = cuda_ms(lambda: nms_mod.nms_fixpoint_torch(cand, alive_f, pipe.iou), iters=20)
     lib_ms = library_nms_ms(cand, alive_f, pipe.iou)
     bound_ms, bound_by, nbytes, nops, steps = nms_bound(cand, alive_f, pipe.iou)
     n_suppressed = int((alive_b & ~keep).sum())
     log(f"[kernel] nms_fixpoint main-path B={cand.shape[0]} K={cand.shape[1]}: "
-        f"{nms_ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us, library "
+        f"{nms_ms * 1e3:.2f} us on the device (CUDA graph), {call_ms * 1e3:.2f} us per "
+        f"wrapper call (plain {plain_ms * 1e3:.1f} us, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}), bound {bound_ms * 1e3:.3f} us "
         f"by {bound_by} ({nbytes} B, {nops} ops; Jacobi steps max {int(steps.max())} "
         f"mean {float(steps.float().mean()):.2f}; {n_suppressed} candidates suppressed)")
@@ -444,16 +537,19 @@ def main() -> None:
     deep_cases = []
     for name in ("dense", "chain"):
         boxes, alive, t = cases_256[name]
-        c_ms = cuda_ms(lambda: kernel_fn(boxes, alive, t), iters=100, warmup=10)
+        c_ms = device_ms(lambda: kernel_fn(boxes, alive, t), launches=100)
+        c_call = cuda_ms(lambda: kernel_fn(boxes, alive, t), iters=100, warmup=10)
         c_plain = cuda_ms(lambda: nms_mod.nms_fixpoint_torch(boxes, alive, t), iters=5, warmup=1)
         c_bound, c_by, _nb, _no, c_steps = nms_bound(boxes, alive, t)
-        deep_cases.append({"case": name, "B": 128, "K": 256, "ms": c_ms, "plain_ms": c_plain,
+        deep_cases.append({"case": name, "B": 128, "K": 256, "ms": c_ms, "call_ms": c_call,
+                           "plain_ms": c_plain,
                            "bound_ms": c_bound, "bound_by": c_by,
                            "jacobi_steps_max": int(c_steps.max()),
                            "jacobi_steps_mean": float(c_steps.float().mean())})
-        log(f"[kernel] nms_fixpoint {name} B=128 K=256: {c_ms * 1e3:.1f} us (plain "
-            f"{c_plain * 1e3:.1f} us), bound {c_bound * 1e3:.3f} us by {c_by}; Jacobi steps "
-            f"max {int(c_steps.max())} mean {float(c_steps.float().mean()):.2f}")
+        log(f"[kernel] nms_fixpoint {name} B=128 K=256: {c_ms * 1e3:.2f} us on the device "
+            f"(CUDA graph), {c_call * 1e3:.2f} us per call (plain {c_plain * 1e3:.1f} us), bound "
+            f"{c_bound * 1e3:.3f} us by {c_by}; Jacobi steps max {int(c_steps.max())} mean "
+            f"{float(c_steps.float().mean()):.2f}")
     kernel_fn.launches = saved
 
     # f32 at full width: card vs CPU, same weights
@@ -548,7 +644,9 @@ def main() -> None:
         if not torch.equal(keep, ref):
             fail(f"{kname} kernel != plain on the slice-2 path's candidates")
         err = float((keep - ref).abs().max())
-        k_ms = cuda_ms(lambda: kfn(cand2, alive2, pipe2.iou), iters=200, warmup=20)
+        saved2 = launches(nms_mod)
+        k_ms = device_ms(lambda: kfn(cand2, alive2, pipe2.iou))
+        k_call = cuda_ms(lambda: kfn(cand2, alive2, pipe2.iou), iters=200, warmup=20)
         p_ms = cuda_ms(lambda: pfn(cand2, alive2, pipe2.iou), iters=10, warmup=2)
         lib_ms2 = library_nms_ms(cand2, alive2, pipe2.iou)
         b_ms, b_by, nbytes2, nops2 = seq_bound(cand2, alive2, ref, pipe2.iou)
@@ -556,19 +654,25 @@ def main() -> None:
         for name in ("dense", "chain"):
             boxes, alive, t = cases_256[name]
             c_keep = pfn(boxes, alive, t)
-            c_ms = cuda_ms(lambda: kfn(boxes, alive, t), iters=100, warmup=10)
+            c_ms = device_ms(lambda: kfn(boxes, alive, t), launches=100)
+            c_call = cuda_ms(lambda: kfn(boxes, alive, t), iters=100, warmup=10)
             c_plain = cuda_ms(lambda: pfn(boxes, alive, t), iters=5, warmup=1)
             c_bound, c_by, _nb, _no = seq_bound(boxes, alive, c_keep, t)
-            deep2.append({"case": name, "B": 128, "K": 256, "ms": c_ms, "plain_ms": c_plain,
+            deep2.append({"case": name, "B": 128, "K": 256, "ms": c_ms, "call_ms": c_call,
+                          "plain_ms": c_plain,
                           "bound_ms": c_bound, "bound_by": c_by, "kept": int(c_keep.sum())})
-            log(f"[kernel] {kname} {name} B=128 K=256: {c_ms * 1e3:.1f} us (plain "
-                f"{c_plain * 1e3:.1f} us), bound {c_bound * 1e3:.3f} us by {c_by}; "
-                f"{int(c_keep.sum())} kept")
-        seq_rows[kname] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            log(f"[kernel] {kname} {name} B=128 K=256: {c_ms * 1e3:.2f} us on the device "
+                f"(CUDA graph), {c_call * 1e3:.2f} us per call (plain {c_plain * 1e3:.1f} us), "
+                f"bound {c_bound * 1e3:.3f} us by {c_by}; {int(c_keep.sum())} kept")
+        for name in COUNTED:  # the timing launches are not the path's
+            getattr(nms_mod, name).launches = saved2[name[:-5]]
+        seq_rows[kname] = {"max_abs_err": err, "ms": k_ms, "call_ms": k_call,
+                           "plain_ms": p_ms, "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": lib_ms2, "deep_cases": deep2,
                            "kept_on_main_path": int(ref.sum())}
         log(f"[kernel] {kname} slice-2 path B={cand2.shape[0]} K={cand2.shape[1]}: "
-            f"{k_ms * 1e3:.1f} us (plain {p_ms * 1e3:.1f} us, library "
+            f"{k_ms * 1e3:.2f} us on the device (CUDA graph), {k_call * 1e3:.2f} us per wrapper "
+            f"call (plain {p_ms * 1e3:.1f} us, library "
             f"{'n/a' if lib_ms2 is None else f'{lib_ms2 * 1e3:.1f} us'}), bound "
             f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes2} B, {nops2} ops; {int(ref.sum())} of "
             f"{int(alive2.sum())} candidates kept)")
@@ -947,7 +1051,8 @@ def main() -> None:
          "source": "cvsd_tpu_torch/csrc/nms_fixpoint.cu",
          "replaces": "cvsd_tpu/ops/nms.py:248",
          "launches": stream_launches, "max_abs_err": max_abs_err,
-         "ms": nms_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "ms": nms_ms, "call_ms": call_ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": lib_ms, "shape": {"B": int(cand.shape[0]), "K": int(cand.shape[1])},
          "suppressed_on_main_path": n_suppressed, "deep_cases": deep_cases},
         {"name": "nms_seq", "replaces": "cvsd_tpu/ops/nms.py:62",

@@ -21,7 +21,7 @@ import torch
 
 from cvsd_tpu_torch.ops.iou import box_iou_matrix
 
-MAX_KERNEL_K = 1024  # one CUDA thread (or lane slot) per candidate
+MAX_KERNEL_K = 1024  # 32 bit words of 32 candidates (the grouped kernel: 32 lane slots)
 # The reference's other methods ('fixpoint', 'xla') are plain XLA there and
 # would be plain PyTorch here: the port keeps only the kernel methods.
 KERNEL_METHODS = ("pallas_fixpoint", "pallas_seq")

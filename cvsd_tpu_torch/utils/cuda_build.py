@@ -2,8 +2,9 @@
 
 Each source under ``cvsd_tpu_torch/csrc/`` has a plain C interface and is
 compiled on first use into a shared library under ``csrc/build/`` (listed in
-``.gitignore``). The library's name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``.gitignore``). The sources share the headers beside them (``*.cuh``). The
+library's name carries a hash of the source, every header and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU-only test host has no ``nvcc``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
@@ -47,9 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

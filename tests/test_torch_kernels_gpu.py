@@ -124,3 +124,62 @@ def test_nms_seq_kernels_reject_bad_inputs(cuda):
         nms_seq_multi_cuda(torch.zeros(1, 1024, 4, device=cuda), torch.ones(1, 1024, device=cuda),
                            group=32)
     assert nms_seq_multi_cuda.launches == before
+
+
+def _edge_inputs(case, B, K):
+    """(boxes, alive, iou_thresh) on the card for one tile-edge test case."""
+    from chip_smoke import NEAR_THRESH, near_threshold_boxes
+
+    rng = np.random.default_rng(K * 1000 + B)
+    if case == "near_threshold":
+        return near_threshold_boxes(rng, B, K), np.ones((B, K), np.float32), NEAR_THRESH
+    alive = (rng.uniform(size=(B, K)) > 0.1).astype(np.float32)
+    if case == "all_dead":
+        alive[:] = 0.0
+    return _boxes(rng, B, K, 100.0, 300.0), alive, 0.45
+
+
+@pytest.mark.parametrize("case", ["random", "all_dead", "near_threshold"])
+@pytest.mark.parametrize("B", [1, 133])
+@pytest.mark.parametrize("K", [31, 32, 33, 63, 64, 65, 1023, 1024])
+def test_tiled_kernels_bit_exact_at_tile_edges(cuda, K, B, case):
+    """nms_seq and nms_fixpoint build their suppression bits in 32x32 tiles:
+    bit-exact against their plain versions where the tiles are full, ragged by
+    one row or column, and at K=1024 (528 tiles, opt-in shared memory)."""
+    from cvsd_tpu_torch.ops.nms import (nms_fixpoint_cuda, nms_fixpoint_torch, nms_seq_cuda,
+                                        nms_seq_torch)
+
+    boxes, alive, t = _edge_inputs(case, B, K)
+    boxes, alive = torch.from_numpy(boxes).to(cuda), torch.from_numpy(alive).to(cuda)
+    seq = nms_seq_cuda(boxes, alive, t)
+    fix = nms_fixpoint_cuda(boxes, alive, t)
+    torch.cuda.synchronize()
+    assert torch.equal(seq, nms_seq_torch(boxes, alive, t))
+    assert torch.equal(fix, nms_fixpoint_torch(boxes, alive, t))
+    assert torch.equal(fix, seq > 0.5)
+    if case == "all_dead":
+        assert not fix.any()
+
+
+def test_kernels_replay_in_a_cuda_graph(cuda):
+    """chip_smoke.py times the kernels by replaying captured launches: a
+    captured launch of each wrapper gives the mask of a direct call."""
+    from cvsd_tpu_torch.ops.nms import nms_fixpoint_cuda, nms_seq_cuda, nms_seq_multi_cuda
+
+    rng = np.random.default_rng(5)
+    boxes = torch.from_numpy(_boxes(rng, 16, 256, 100.0, 300.0)).to(cuda)
+    alive = torch.ones(16, 256, device=cuda)
+    for fn in (nms_fixpoint_cuda, nms_seq_cuda, nms_seq_multi_cuda):
+        want = fn(boxes, alive, 0.45)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(boxes, alive, 0.45)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn(boxes, alive, 0.45)
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import NEAR_THRESH, near_threshold_boxes
 from cvsd_tpu.ops.nms import batched_nms as batched_nms_jax
 from cvsd_tpu.ops.nms import nms_jax, nms_pallas, nms_pallas_multi
 from cvsd_tpu_torch.config import get_default_config
@@ -28,8 +29,9 @@ def _few_threads():
 
 
 def _cases(K):
-    """The six cases chip_smoke.py holds the kernels to, at (B, K):
-    (boxes (B,K,4), alive (B,K) 0/1, iou_thresh)."""
+    """The seven cases chip_smoke.py holds the kernels to, at (B, K):
+    (boxes (B,K,4), alive (B,K) 0/1, iou_thresh). In ``near_threshold`` each
+    pair's float32 IoU lies within 2 ulps of the threshold."""
     rng = np.random.default_rng(K)
 
     def boxes(lo, hi, wmin, wmax):
@@ -54,6 +56,7 @@ def _cases(K):
         "chain": (chain, ones, 0.2),
         "all_overlap": (over, ones, 0.5),
         "zero_area": (zero, ones, 0.45),
+        "near_threshold": (near_threshold_boxes(rng, B, K), ones, NEAR_THRESH),
     }
 
 
