@@ -7,11 +7,11 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
      kernels built by nvcc from csrc/ (registers, spills and shared memory
      printed)
-  2. kernel vs plain: the three NMS kernels (fixpoint, sequential, grouped
-     sequential) bit-exact against their plain PyTorch versions on seven
+  2. kernel vs plain: the NMS kernels through their three wrappers
+     (fixpoint, sequential, grouped sequential) bit-exact against their plain PyTorch versions on seven
      cases (one with IoUs within 2 ulps of the threshold) at B=128, K=256 and
-     at ragged K=84, the sequential pair also at B=5 with a ragged last group
-     of 8; all three give one mask
+     at ragged K=84, the sequential pair also at B=5 with group 8; all
+     three give one mask
   3. detect: DetectionPipeline at full width (v5m scale, 640 canvas, bf16,
      pose head) on B=128 320x240 uint8 frames; the kernel timed on the main
      path's candidates and on two cases that need many fixpoint steps (device
@@ -19,7 +19,8 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      float32 at full width on the card and on the CPU with the same weights
   3b. detect, slice 2 (SLICE2: v8dfl head, flip TTA, top-down pose,
      pallas_seq) on the same frames; both sequential kernels timed on its
-     candidates and on the deep cases; the batch's time split by layer; then
+     candidates, on the deep cases and on B=1024 random boxes; the batch's
+     time split by layer; then
      float32 card vs CPU: the v8dfl head maps, batched_nms('pallas_seq') and
      the top-down keypoints on the same boxes
   4. score: ShopformerScorer on 1024 windows, card f32 against CPU f32
@@ -402,6 +403,38 @@ def check_kernels(nms_mod, dev) -> dict:
     return cases_256
 
 
+def time_big_batch(nms_mod, dev, group: int = 8) -> dict:
+    """Both sequential kernels on ``random`` boxes at B=1024, K=256 (5.2 MB of
+    boxes, 1024 CTAs: nearly eight per SM): bit-exact against the plain
+    version, device time, time per call and bound. Returns one row per
+    kernel; restores the launch counts."""
+    B, K = 1024, 256
+    boxes, alive, t = nms_cases(B, K, dev)["random"]
+    saved = launches(nms_mod)
+    ref = nms_mod.nms_seq_torch(boxes, alive, t)
+    b_ms, b_by, _nb, _no = seq_bound(boxes, alive, ref, t)
+    plain = cuda_ms(lambda: nms_mod.nms_seq_torch(boxes, alive, t), iters=3, warmup=1)
+    rows = {}
+    for kname, fn in (
+            ("nms_seq", lambda: nms_mod.nms_seq_cuda(boxes, alive, t)),
+            ("nms_seq_multi", lambda: nms_mod.nms_seq_multi_cuda(boxes, alive, t, group))):
+        keep = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(keep, ref):
+            fail(f"{kname} kernel != plain on random B={B} K={K}")
+        k_ms = device_ms(fn, launches=100)
+        k_call = cuda_ms(fn, iters=100, warmup=10)
+        rows[kname] = {"case": "random", "B": B, "K": K, "ms": k_ms,
+                       "call_ms": k_call, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                       "kept": int(ref.sum())}
+        log(f"[kernel] {kname} random B={B} K={K}: {k_ms * 1e3:.2f} us on the device "
+            f"(CUDA graph), {k_call * 1e3:.2f} us per call (plain {plain * 1e3:.1f} us), bound "
+            f"{b_ms * 1e3:.3f} us by {b_by}; {int(ref.sum())} kept")
+    for name in COUNTED:
+        getattr(nms_mod, name).launches = saved[name[:-5]]
+    return rows
+
+
 COUNTED = ("nms_fixpoint_cuda", "nms_seq_cuda", "nms_seq_multi_cuda")
 
 
@@ -457,10 +490,8 @@ def main() -> None:
     fix_lib, seq_lib = nms_mod.kernel_lib("nms_fixpoint"), nms_mod.kernel_lib("nms_seq")
     log("[build] dynamic shared memory per CTA: nms_fixpoint " + ", ".join(
         f"{fix_lib.cvsd_nms_fixpoint_smem_bytes(k)} B at K={k}" for k in (256, 84))
-        + "; nms_seq " + ", ".join(
-        f"{seq_lib.cvsd_nms_seq_smem_bytes(k)} B at K={k}" for k in (256, 84))
-        + "; nms_seq_multi " + ", ".join(
-        f"{seq_lib.cvsd_nms_seq_multi_smem_bytes(k, 8)} B at K={k}, G=8" for k in (256, 84)))
+        + "; nms_seq (nms_seq and nms_seq_multi, one CTA per image) " + ", ".join(
+        f"{seq_lib.cvsd_nms_seq_smem_bytes(k)} B at K={k}" for k in (256, 84, 1024)))
     set_tf32(False)
     kernel_fn = nms_mod.nms_fixpoint_cuda
 
@@ -676,6 +707,8 @@ def main() -> None:
             f"{'n/a' if lib_ms2 is None else f'{lib_ms2 * 1e3:.1f} us'}), bound "
             f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes2} B, {nops2} ops; {int(ref.sum())} of "
             f"{int(alive2.sum())} candidates kept)")
+    for kname, row in time_big_batch(nms_mod, dev).items():
+        seq_rows[kname]["b1024"] = row
     # where a slice-2 batch's time goes, layer by layer (CUDA events, the same
     # canvas and the pipeline's own modules)
     with torch.no_grad():

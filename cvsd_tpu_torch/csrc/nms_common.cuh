@@ -21,6 +21,9 @@
 // with W = ceil(K/32) words and Kp = 32W. Every row word of a tile is
 // written, zeros included, so rows and columns past K read as empty.
 //
+// greedy_rows runs the sequential greedy over one image's row words on one
+// warp, a 32-bit word at a time, with no IoU and no barrier in its loop.
+//
 // Sizes: the CTA has one warp per slice, at most 32 warps (build_threads); the
 // words take 4*W*Kp bytes of shared memory, 8 KB at K=256 and 128 KB at
 // K=1024 (above 48 KB a launch needs allow_smem).
@@ -119,6 +122,35 @@ __device__ __forceinline__ void build_bits(const float4* sbox, const float* sare
       atomicOr(&bits[w * Kp + j], word);
     }
   }
+}
+
+// The sequential greedy over one image's row words R (build_bits<kRows>) on
+// one warp. Lane s passes alive word s (0 for s >= W) and gets keep word s
+// back. For block b it resolves the block's own word in registers from its 32
+// diagonal row words (in score order: that is the greedy exactly), then every
+// lane s > b clears the OR of R[32b+k][s] over the block's kept k, all its
+// loads in flight at once: W short steps, whatever the number of live anchors.
+__device__ __forceinline__ uint32_t greedy_rows(const uint32_t* rows, uint32_t alive, int W) {
+  const int lane = threadIdx.x & 31;
+  for (int b = 0; b < W; ++b) {
+    const int i0 = b << 5;
+    // lane k: row i0+k's bits in block b (bits only for columns past the row)
+    const uint32_t diag = rows[(i0 + lane) * W + b];
+    uint32_t kept = __shfl_sync(kFull, alive, b);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const uint32_t dk = __shfl_sync(kFull, diag, k);
+      if ((kept >> k) & 1u) kept &= ~dk;
+    }
+    uint32_t sup = 0u;
+    if (lane > b && lane < W) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k)  // predicated loads, all in flight at once
+        if ((kept >> k) & 1u) sup |= rows[(i0 + k) * W + lane];
+    }
+    alive = lane == b ? kept : (alive & ~sup);
+  }
+  return alive;
 }
 
 // The dynamic shared memory a kernel asks for; above 48 KB it must opt in.

@@ -21,7 +21,7 @@ import torch
 
 from cvsd_tpu_torch.ops.iou import box_iou_matrix
 
-MAX_KERNEL_K = 1024  # 32 bit words of 32 candidates (the grouped kernel: 32 lane slots)
+MAX_KERNEL_K = 1024  # 32 bit words of 32 candidates
 # The reference's other methods ('fixpoint', 'xla') are plain XLA there and
 # would be plain PyTorch here: the port keeps only the kernel methods.
 KERNEL_METHODS = ("pallas_fixpoint", "pallas_seq")
@@ -143,9 +143,7 @@ _LAUNCHERS = {
     "nms_fixpoint": {"cvsd_nms_fixpoint": [_P, _P, _P, _I, _I, _F, _P],
                      "cvsd_nms_fixpoint_smem_bytes": [_I]},
     "nms_seq": {"cvsd_nms_seq": [_P, _P, _P, _I, _I, _F, _P],
-                "cvsd_nms_seq_multi": [_P, _P, _P, _I, _I, _I, _F, _P],
-                "cvsd_nms_seq_smem_bytes": [_I],
-                "cvsd_nms_seq_multi_smem_bytes": [_I, _I]},
+                "cvsd_nms_seq_smem_bytes": [_I]},
 }
 
 
@@ -187,37 +185,39 @@ def nms_fixpoint_cuda(boxes: torch.Tensor, alive: torch.Tensor,
     return keep
 
 
+def _nms_seq_launch(name: str, boxes: torch.Tensor, alive: torch.Tensor,
+                    iou_thresh: float) -> Tuple[torch.Tensor, bool]:
+    """Launch ``nms_seq_kernel`` -> (keep, whether it launched)."""
+    B, K = _check_inputs(name, boxes, alive)
+    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
+    if B == 0 or K == 0:
+        return keep, False
+    _launch("nms_seq", "cvsd_nms_seq", boxes, alive, keep, B, K, float(iou_thresh))
+    return keep, True
+
+
 def nms_seq_cuda(boxes: torch.Tensor, alive: torch.Tensor,
                  iou_thresh: float = 0.45) -> torch.Tensor:
     """Launch ``nms_seq_kernel`` of ``csrc/nms_seq.cu`` (one CTA per image)
     on the current stream. Inputs as ``nms_fixpoint_cuda``'s. Returns keep
     (B, K) float32 0/1. Raises on anything else; never falls back."""
-    B, K = _check_inputs("nms_seq_cuda", boxes, alive)
-    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
-    if B == 0 or K == 0:
-        return keep
-    _launch("nms_seq", "cvsd_nms_seq", boxes, alive, keep, B, K, float(iou_thresh))
-    nms_seq_cuda.launches += 1
+    keep, launched = _nms_seq_launch("nms_seq_cuda", boxes, alive, iou_thresh)
+    nms_seq_cuda.launches += launched
     return keep
 
 
 def nms_seq_multi_cuda(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45,
                        group: int = 8) -> torch.Tensor:
-    """Launch ``nms_seq_multi_kernel`` of ``csrc/nms_seq.cu`` (``group``
-    images per CTA, one warp each; B is not padded) on the current stream.
-    Inputs as ``nms_fixpoint_cuda``'s, and 1 <= group <= 32. Returns keep
-    (B, K) float32 0/1. A group whose images' boxes do not fit one CTA's
-    shared memory (``cvsd_nms_seq_multi_smem_bytes``) makes the launcher
-    fail, and this raises."""
-    B, K = _check_inputs("nms_seq_multi_cuda", boxes, alive)
+    """``nms_pallas_multi``'s counterpart: the same ``nms_seq_kernel`` launch
+    as ``nms_seq_cuda``, one CTA per image. The reference's ``group`` (images
+    per grid step, a VMEM budget there) changes nothing in the mask: it must
+    lie in 1..32 and is otherwise unused. Inputs as ``nms_fixpoint_cuda``'s.
+    Returns keep (B, K) float32 0/1. Raises on anything else."""
     G = int(group)
     if not 1 <= G <= 32:
         raise ValueError(f"nms_seq_multi_cuda needs 1 <= group <= 32, got group={G}")
-    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
-    if B == 0 or K == 0:
-        return keep
-    _launch("nms_seq", "cvsd_nms_seq_multi", boxes, alive, keep, B, K, G, float(iou_thresh))
-    nms_seq_multi_cuda.launches += 1
+    keep, launched = _nms_seq_launch("nms_seq_multi_cuda", boxes, alive, iou_thresh)
+    nms_seq_multi_cuda.launches += launched
     return keep
 
 

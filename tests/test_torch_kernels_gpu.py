@@ -68,10 +68,11 @@ def test_nms_fixpoint_kernel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("B,K,group", [(128, 256, 8), (3, 84, 8), (5, 256, 2), (2, 1024, 8),
-                                       (1, 1, 1), (7, 33, 32)])
+                                       (1, 1, 1), (7, 33, 32), (1024, 256, 8), (3, 1024, 32)])
 def test_nms_seq_kernels_bit_exact(cuda, B, K, group):
     """Both sequential kernels equal their plain version bit for bit, and the
-    fixpoint kernel gives the same mask; ragged K and a ragged last group."""
+    fixpoint kernel gives the same mask; ragged K, B=1024, and group 32 at
+    K=1024 (the grouped wrapper launches one CTA per image whatever the group)."""
     from cvsd_tpu_torch.ops.nms import (nms_fixpoint_cuda, nms_seq_cuda, nms_seq_multi_cuda,
                                         nms_seq_multi_torch, nms_seq_torch)
 
@@ -118,12 +119,6 @@ def test_nms_seq_kernels_reject_bad_inputs(cuda):
         with pytest.raises(ValueError, match="group"):
             nms_seq_multi_cuda(torch.zeros(1, 8, 4, device=cuda), torch.ones(1, 8, device=cuda),
                                group=group)
-    # 32 * 1024 * 20 B of shared memory per CTA: the launcher refuses it
-    before = nms_seq_multi_cuda.launches
-    with pytest.raises(RuntimeError, match="cvsd_nms_seq_multi kernel launch: CUDA error"):
-        nms_seq_multi_cuda(torch.zeros(1, 1024, 4, device=cuda), torch.ones(1, 1024, device=cuda),
-                           group=32)
-    assert nms_seq_multi_cuda.launches == before
 
 
 def _edge_inputs(case, B, K):
@@ -143,20 +138,24 @@ def _edge_inputs(case, B, K):
 @pytest.mark.parametrize("B", [1, 133])
 @pytest.mark.parametrize("K", [31, 32, 33, 63, 64, 65, 1023, 1024])
 def test_tiled_kernels_bit_exact_at_tile_edges(cuda, K, B, case):
-    """nms_seq and nms_fixpoint build their suppression bits in 32x32 tiles:
+    """Both kernels build their suppression bits in 32x32 tiles:
     bit-exact against their plain versions where the tiles are full, ragged by
-    one row or column, and at K=1024 (528 tiles, opt-in shared memory)."""
+    one row or column, and at K=1024 (528 tiles, opt-in shared memory); the
+    grouped wrapper at group 1, 8 and 32."""
     from cvsd_tpu_torch.ops.nms import (nms_fixpoint_cuda, nms_fixpoint_torch, nms_seq_cuda,
-                                        nms_seq_torch)
+                                        nms_seq_multi_cuda, nms_seq_torch)
 
     boxes, alive, t = _edge_inputs(case, B, K)
     boxes, alive = torch.from_numpy(boxes).to(cuda), torch.from_numpy(alive).to(cuda)
     seq = nms_seq_cuda(boxes, alive, t)
     fix = nms_fixpoint_cuda(boxes, alive, t)
+    multi = {group: nms_seq_multi_cuda(boxes, alive, t, group) for group in (1, 8, 32)}
     torch.cuda.synchronize()
     assert torch.equal(seq, nms_seq_torch(boxes, alive, t))
     assert torch.equal(fix, nms_fixpoint_torch(boxes, alive, t))
     assert torch.equal(fix, seq > 0.5)
+    for group, keep in multi.items():
+        assert torch.equal(keep, seq), group
     if case == "all_dead":
         assert not fix.any()
 

@@ -135,3 +135,24 @@ def test_nms_methods_outside_the_kernels_raise():
     cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_detect_fn(build_detector(cfg, device="cpu"), nms_method="xla")
+
+
+@pytest.mark.parametrize("group", [1, 5, 32])
+def test_nms_seq_multi_group_changes_nothing_in_the_mask(group):
+    """The reference's ``group`` is a VMEM budget: one image per step, all B
+    in one step, or a step padded far past B, it gives ``nms_pallas``'s mask,
+    and so does the port's grouped plain version."""
+    boxes, alive, t = _cases(84)["dense"]
+    jb, ja = jnp.asarray(boxes), jnp.asarray(alive)
+    ref = np.asarray(nms_pallas(jb, ja, t))
+    np.testing.assert_array_equal(np.asarray(nms_pallas_multi(jb, ja, t, group=group)), ref)
+    tb, ta = torch.from_numpy(boxes), torch.from_numpy(alive)
+    np.testing.assert_array_equal(nms_seq_multi(tb, ta, t, group).numpy(), ref)
+
+
+@pytest.mark.parametrize("group", [0, 33])
+def test_nms_seq_multi_cuda_refuses_a_group_outside_1_to_32(group):
+    before = nms_seq_multi_cuda.launches
+    with pytest.raises(ValueError, match="1 <= group <= 32"):
+        nms_seq_multi_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4), group=group)
+    assert nms_seq_multi_cuda.launches == before
