@@ -4,4 +4,5 @@ from cvsd_tpu_torch.config.config import (  # noqa: F401
     get_default_config,
     load_config,
     merge_configs,
+    validate_config,
 )

@@ -4,8 +4,8 @@ The port's own copy of ``cvsd_tpu/config/config.py`` (same defaults, same
 keys, so one YAML file configures both packages); ``yaml`` is imported
 lazily.
 
-The reference package also saves and validates configs for its trainers;
-those wait for the training slice.
+The reference package also saves configs for its trainers; that waits for
+the training slice.
 
 Design: a single nested dict (the "config tree") is the source of truth,
 threaded through model/data/trainer factories and embedded in every
@@ -205,4 +205,31 @@ def apply_overrides(cfg: Dict[str, Any], overrides: Optional[List[str]]) -> Conf
             node = node[k]
         node[keys[-1]] = _parse_value(value)
     return cfg
+
+
+REQUIRED_SECTIONS = ("data", "model", "training")
+
+
+def validate_config(cfg: Dict[str, Any]) -> None:
+    """Structural validation (reference: shopformer_2/utils/config.py:165-202)."""
+    for section in REQUIRED_SECTIONS:
+        if section not in cfg:
+            raise ValueError(f"config missing required section {section!r}")
+    m = cfg["model"]
+    d_model = int(m["latent_channels"]) * int(m["num_keypoints"])
+    if d_model % int(m["num_heads"]) != 0:
+        raise ValueError(
+            f"d_model (latent_channels*num_keypoints = {d_model}) must be divisible by "
+            f"num_heads ({m['num_heads']})"
+        )
+    if int(cfg["data"]["seq_len"]) < int(m["num_tokens"]):
+        raise ValueError("seq_len must be >= num_tokens")
+    if m.get("variant", "v2") not in ("v1", "v2"):
+        raise ValueError(f"model.variant must be v1|v2, got {m.get('variant')!r}")
+    layout = m.get("layout", "coco")
+    expected_v = {"coco": 17, "openpose": 18, "coco_with_neck": 18}.get(layout)
+    if expected_v is not None and int(m["num_keypoints"]) != expected_v:
+        raise ValueError(
+            f"layout {layout!r} implies {expected_v} keypoints, got num_keypoints={m['num_keypoints']}"
+        )
 

@@ -1,18 +1,24 @@
-"""Batched Shopformer scoring (PyTorch port of ``ShopformerScorer`` in
-``cvsd_tpu/eval/evaluate.py``). Checkpoint loading (``load_model``) waits for
-the msgpack reader (ROADMAP.md, deferred items)."""
+"""Batched Shopformer scoring and checkpoint loading (PyTorch port of
+``ShopformerScorer`` and ``load_model`` in ``cvsd_tpu/eval/evaluate.py``).
+``load_model`` reads the JAX package's msgpack checkpoints through
+``utils/checkpoint.py``; the evaluation drivers (``evaluate_checkpoint`` and
+its plots) wait for the training slice (ROADMAP.md module queue, item 10)."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from cvsd_tpu_torch.config import Config
+from cvsd_tpu_torch.config import Config, get_default_config, merge_configs
 from cvsd_tpu_torch.data.datamodule import batch_iterator
-from cvsd_tpu_torch.models.shopformer import Shopformer
+from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, Shopformer, build_shopformer
+from cvsd_tpu_torch.utils.checkpoint import load_checkpoint
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device
+from cvsd_tpu_torch.utils.weights import load_flax_variables
 
 
 class ShopformerScorer:
@@ -42,3 +48,26 @@ class ShopformerScorer:
     @staticmethod
     def fetch_scores(device_scores: torch.Tensor) -> np.ndarray:
         return device_scores.cpu().numpy()
+
+
+def load_model(checkpoint_path: str, config: Optional[Dict[str, Any]] = None,
+               device: DeviceLike = None) -> ShopformerScorer:
+    """Rebuild the Shopformer from the checkpoint's embedded config (or an
+    explicit one, or a sibling ``config.json``), merged over the defaults,
+    and fill it from the checkpoint's flax variables on ``device`` (default:
+    the CUDA card, raising without one). The GCAE decoder's variables, which
+    the port does not hold, are skipped."""
+    dev = resolve_device(device)
+    state, meta = load_checkpoint(checkpoint_path)
+    if config is None:
+        config = meta.get("config")
+        if config is None:
+            sidecar = os.path.join(os.path.dirname(checkpoint_path), "config.json")
+            if os.path.exists(sidecar):
+                with open(sidecar) as f:
+                    config = json.load(f)
+    config = merge_configs(get_default_config(), config or {})
+    model = build_shopformer(config, device="cpu")
+    variables = {"params": state["params"], "batch_stats": state.get("batch_stats", {})}
+    load_flax_variables(model, variables, skip=SKIP_FLAX)
+    return ShopformerScorer(model, config, device=dev)

@@ -390,20 +390,15 @@ def make_detect_fn(model: PersonDetector, conf_thresh: float = 0.25, iou_thresh:
     return detect
 
 
-def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int = 0,
-                   state_dict: Optional[Dict[str, torch.Tensor]] = None) -> PersonDetector:
-    """PersonDetector from ``config['detector']`` on ``device`` (default: the
-    CUDA card, raising without one), eval mode, in the configured dtype.
-    Weights from ``state_dict`` (see utils/weights.py) or seeded random."""
-    from cvsd_tpu_torch.utils.weights import init_module
-
+def detector_from_config(config: Dict[str, Any]) -> PersonDetector:
+    """The PersonDetector ``config['detector']`` describes, its weights not
+    yet filled (under ``torch.device("meta")`` it allocates nothing: a
+    template for ``utils/weights.py``)."""
     d = config.get("detector", {})
-    dev = resolve_device(device)
     if d.get("quantized"):
         raise NotImplementedError(
             "detector.quantized (int8) is not ported yet: ROADMAP.md module queue, item 13")
-    dtype = torch_dtype(d.get("dtype", "bfloat16"))
-    model = PersonDetector(
+    return PersonDetector(
         img_size=int(d.get("img_size", 640)),
         width_mult=float(d.get("width_mult", 0.75)),
         depth_mult=float(d.get("depth_mult", 0.67)),
@@ -412,8 +407,20 @@ def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int 
         num_classes=int(d.get("num_classes", 80)),
         reg_max=int(d.get("reg_max", 16)),
         channel_divisor=int(d.get("channel_divisor", 8)),
-        dtype=dtype,
+        dtype=torch_dtype(d.get("dtype", "bfloat16")),
     )
+
+
+def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int = 0,
+                   state_dict: Optional[Dict[str, torch.Tensor]] = None) -> PersonDetector:
+    """PersonDetector from ``config['detector']`` on ``device`` (default: the
+    CUDA card, raising without one), eval mode, in the configured dtype.
+    Weights from ``state_dict`` (see utils/weights.py) or seeded random."""
+    from cvsd_tpu_torch.utils.weights import init_module
+
+    dev = resolve_device(device)
+    model = detector_from_config(config)
+    dtype = model.dtype
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:

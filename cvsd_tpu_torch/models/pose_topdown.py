@@ -149,8 +149,30 @@ def build_pose_topdown(config: Dict[str, Any], device: DeviceLike = None, seed: 
         model.load_state_dict(state_dict, strict=True)
     else:
         init_module(model, seed)
+    return _place(model, dev)
+
+
+def _place(model: TopDownPoseNet, dev: torch.device) -> TopDownPoseNet:
     model = model.to(dev).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
+
+
+def load_pose_topdown_checkpoint(path: str, device: DeviceLike = None) -> TopDownPoseNet:
+    """The TopDownPoseNet of a ``TopDownPoseTrainer.save`` file (the JAX
+    package's trainer), carrying its weights, on ``device`` (default: the
+    CUDA card, raising without one). Its shape and temperature come from the
+    checkpoint's ``config['pose_topdown']``."""
+    from cvsd_tpu_torch.utils.checkpoint import load_checkpoint
+    from cvsd_tpu_torch.utils.weights import load_flax_variables
+
+    dev = resolve_device(device)
+    variables, meta = load_checkpoint(path)
+    cfg = ((meta or {}).get("config") or {}).get("pose_topdown") or {}
+    model = TopDownPoseNet(num_keypoints=int(cfg.get("num_keypoints", 17)),
+                           width=int(cfg.get("width", 32)),
+                           crop_size=int(cfg.get("crop_size", 64)),
+                           temperature=float(cfg.get("temperature", 1.0)))
+    return _place(load_flax_variables(model, variables), dev)
 

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from cvsd_tpu_torch.models.detector import PersonDetector, build_detector, make_detect_fn
 from cvsd_tpu_torch.models.pose_topdown import (TopDownPoseNet, build_pose_topdown,
-                                                pose_from_boxes)
+                                                load_pose_topdown_checkpoint, pose_from_boxes)
 from cvsd_tpu_torch.ops.iou import xyxy_to_xywhn
 from cvsd_tpu_torch.ops.nms import check_nms_method
 from cvsd_tpu_torch.ops.letterbox import (PAD_VALUE, letterbox_batch, letterbox_params,
@@ -38,8 +38,9 @@ class DetectionPipeline:
 
     ``pose_model``: a TopDownPoseNet carrying its weights; its keypoints
     replace the detector head's. ``detector.pose_mode: topdown`` without one
-    builds a seeded random net (``seed + 1``) and warns, as the reference
-    does."""
+    loads ``detector.pose_topdown_checkpoint`` (a ``TopDownPoseTrainer.save``
+    file) or, with none set, builds a seeded random net (``seed + 1``) and
+    warns, as the reference does."""
 
     def __init__(self, config: Dict[str, Any], state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  seed: int = 0, device: DeviceLike = None,
@@ -53,21 +54,19 @@ class DetectionPipeline:
         nms_method = str(d.get("nms_method", "pallas_fixpoint"))
         check_nms_method(nms_method)
         pose_mode = str(d.get("pose_mode", "head"))
-        if pose_mode == "topdown" and pose_model is None and d.get("pose_topdown_checkpoint"):
-            raise NotImplementedError(
-                "detector.pose_topdown_checkpoint needs the msgpack checkpoint reader, which "
-                "is not ported yet: ROADMAP.md, deferred items; pass pose_model instead")
         self.config = config
         self.device = resolve_device(device)
         self.model: PersonDetector = build_detector(config, self.device, seed, state_dict)
         if pose_model is not None:
             pose_model = pose_model.to(self.device).eval()
+        elif pose_mode == "topdown" and d.get("pose_topdown_checkpoint"):
+            pose_model = load_pose_topdown_checkpoint(d["pose_topdown_checkpoint"], self.device)
         elif pose_mode == "topdown":
             warnings.warn(
                 "detector.pose_mode='topdown' with no pose_topdown_checkpoint and no "
                 "pose_model: instantiating a RANDOMLY-INITIALIZED TopDownPoseNet — keypoints "
-                "will be garbage. Pass pose_model (a TopDownPoseNet carrying its weights).",
-                RuntimeWarning)
+                "will be garbage. Set detector.pose_topdown_checkpoint or pass pose_model "
+                "(a TopDownPoseNet carrying its weights).", RuntimeWarning)
             pose_model = build_pose_topdown(config, self.device, seed + 1)
         self.pose_model = pose_model
         self.conf = float(d.get("conf_threshold", 0.25))

@@ -307,6 +307,24 @@ class StreamingPipeline:
         yield from self.run_stream(
             RoundRobinReader(self, [source], (info.height, info.width), max_streams=1))
 
+    def stream_videos(self, video_paths: Sequence[str]) -> Dict[str, Any]:
+        """Stream the videos one after another; returns the events and
+        throughput stats (frames as each file's header counts them)."""
+        from cvsd_tpu_torch.data.video import video_info
+
+        t0 = time.perf_counter()
+        events: List[ScoreEvent] = []
+        n_frames = 0
+        for path in video_paths:
+            events.extend(self.stream_video(path))
+            n_frames += video_info(path).num_frames
+        dt = time.perf_counter() - t0
+        return {
+            "events": events, "videos": len(video_paths), "frames": n_frames,
+            "seconds": dt, "fps": n_frames / dt if dt > 0 else 0.0,
+            "videos_per_hour": len(video_paths) / dt * 3600 if dt > 0 else 0.0,
+        }
+
     def stream_videos_concurrent(self, video_paths: Sequence[str], max_streams: int = 8,
                                  on_event=None) -> Dict[str, Any]:
         """Multiplex frames from up to ``max_streams`` same-resolution videos

@@ -15,13 +15,14 @@ The port's modules are named after the flax auto-names (``Backbone_0``,
 The conversion is strict: every flax leaf is consumed, every torch tensor is
 filled (BatchNorm's ``num_batches_tracked`` counter has no flax counterpart
 and is left at 0), and every shape must match. Subtrees the port does not
-hold yet are skipped only when named in ``skip``.
+hold yet are skipped only when named in ``skip``. ``state_dict_to_flax`` goes
+the other way, for checkpoints the port writes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +59,9 @@ def flax_to_state_dict(
     skip: Iterable[str] = (),
 ) -> Dict[str, torch.Tensor]:
     """Convert ``{"params": ..., "batch_stats": ...}`` (numpy leaves) into a
-    complete ``state_dict`` for ``module``. ``skip`` lists '/'-joined flax
+    complete ``state_dict`` for ``module``, on the host; only the module's
+    shapes and dtypes are read, so it may lie on the meta device. ``skip``
+    lists '/'-joined flax
     subtree prefixes without the collection (e.g. ``"gcae/decoder"``) that the
     port deliberately does not hold. Raises ``KeyError`` on a missing or
     extra key and ``ValueError`` on a shape mismatch."""
@@ -78,6 +81,8 @@ def flax_to_state_dict(
         if key not in target:
             extra.append("/".join(path))
             continue
+        if isinstance(value, torch.Tensor):  # a bfloat16 leaf read from a checkpoint
+            value = value.to(torch.float32).numpy()
         arr = _convert_leaf(leaf, np.asarray(value, np.float32), target[key].shape)
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(
@@ -91,9 +96,9 @@ def flax_to_state_dict(
     if missing:
         raise KeyError(f"torch tensors not filled from flax: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
-    for k in target:
+    for k in target:  # on the host, whatever device the template lies on
         if k.endswith("num_batches_tracked"):
-            out[k] = torch.zeros_like(target[k])
+            out[k] = torch.zeros(target[k].shape, dtype=target[k].dtype)
     return out
 
 
@@ -102,6 +107,56 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any],
     """Fill ``module`` in place from flax variables (see flax_to_state_dict)."""
     module.load_state_dict(flax_to_state_dict(variables, module, skip), strict=True)
     return module
+
+
+def _to_flax_leaf(owner: nn.Module, name: str, leaf: str, value: np.ndarray,
+                  heads: Optional[int]) -> Tuple[str, str, np.ndarray]:
+    """(collection, flax leaf name, flax-shaped value) of one torch tensor,
+    every case of ``_convert_leaf`` undone. ``heads``: the head count of the
+    attention module that owns ``owner``, else None."""
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", leaf[len("running_"):], value
+    qkv = heads is not None and name in ("query", "key", "value")
+    if leaf == "bias":  # attention q/k/v (h*hd,) -> (h, hd)
+        return "params", "bias", value.reshape(heads, -1) if qkv else value
+    if isinstance(owner, nn.Conv2d):  # OIHW -> HWIO
+        return "params", "kernel", value.transpose(2, 3, 1, 0)
+    if isinstance(owner, nn.Linear):  # (out, in) -> (in, out)
+        kernel = value.T
+        if qkv:  # (d, h*hd) -> (d, h, hd)
+            kernel = kernel.reshape(kernel.shape[0], heads, -1)
+        elif heads is not None and name == "out":  # (h*hd, d) -> (h, hd, d)
+            kernel = kernel.reshape(heads, -1, kernel.shape[1])
+        return "params", "kernel", kernel
+    return "params", "scale", value  # norm scales
+
+
+def state_dict_to_flax(module: nn.Module, skip: Iterable[str] = ()) -> Dict[str, Any]:
+    """The inverse of ``flax_to_state_dict``: ``module``'s tensors as
+    ``{"params": ..., "batch_stats": ...}`` of float32 numpy arrays under the
+    flax names and layouts, ready for ``utils/checkpoint.py``. BatchNorm's
+    ``num_batches_tracked`` is dropped; ``skip`` lists '/'-joined flax
+    subtree prefixes to leave out, as in ``flax_to_state_dict``."""
+    skip = tuple(s.strip("/") + "/" for s in skip)
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, tensor in module.state_dict().items():
+        owner_path, leaf = key.rsplit(".", 1)
+        mod_path = owner_path.split(".")
+        if leaf == "num_batches_tracked" or (skip and (owner_path.replace(".", "/") + "/")
+                                             .startswith(skip)):
+            continue
+        owner = module.get_submodule(owner_path)
+        parent = module.get_submodule(owner_path.rpartition(".")[0])
+        heads = getattr(parent, "num_heads", None) if isinstance(owner, nn.Linear) else None
+        value = tensor.detach().to(device="cpu", dtype=torch.float32).numpy()
+        collection, name, arr = _to_flax_leaf(owner, mod_path[-1], leaf, value, heads)
+        node = out[collection]
+        for part in mod_path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port stands alone: no module of cvsd_tpu_torch, and nothing
-chip_smoke.py imports, loads jax, flax or cvsd_tpu; and the entry points'
-default device (the CUDA card) raises when there is none, with no silent
-CPU fallback. Checked in fresh subprocesses: this test process has JAX
-loaded by conftest.py."""
+chip_smoke.py imports, loads jax, flax or cvsd_tpu, nor msgpack, cv2 or yaml,
+which the card machine lacks; and the entry points' default device (the
+CUDA card) raises when there is none, with no silent CPU fallback. Checked
+in fresh subprocesses: this test process has JAX loaded by conftest.py."""
 
 import os
 import subprocess
@@ -35,15 +35,18 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
             # an optional yardstick (torchvision) that is not installed is skipped
             if importlib.util.find_spec(name.split(".")[0]) is not None:
                 importlib.import_module(name)
+        # msgpack, cv2 and yaml are absent on the card machine: the port
+        # imports them (cv2, yaml) only inside the functions that need them
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cvsd_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cvsd_tpu",
+                                            "msgpack", "cv2", "yaml"))
         print("BAD", bad)
         n = sum(1 for m in sys.modules if m.startswith("cvsd_tpu_torch."))
         print("PORT_MODULES", n)
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 25
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 45
 
 
 def test_default_device_raises_without_cuda():
@@ -57,6 +60,9 @@ def test_default_device_raises_without_cuda():
         from cvsd_tpu_torch.models.shopformer import build_shopformer
         from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
         from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
+        from cvsd_tpu_torch.eval.evaluate import load_model
+        from cvsd_tpu_torch.models.pose_topdown import load_pose_topdown_checkpoint
+        from cvsd_tpu_torch.cli import serve, stream
         cfg = get_default_config()
         cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
         cpu_model = build_shopformer(cfg, device="cpu")
@@ -68,6 +74,12 @@ def test_default_device_raises_without_cuda():
             "DetectionPipeline": lambda: DetectionPipeline(cfg),
             "ShopformerScorer": lambda: ShopformerScorer(cpu_model, cfg),
             "StreamingPipeline": lambda: StreamingPipeline(cfg, scorer),
+            # the device is resolved before the file is read
+            "load_model": lambda: load_model("no_such.msgpack"),
+            "load_pose_topdown_checkpoint": lambda: load_pose_topdown_checkpoint("no_such.msgpack"),
+            "cli.serve": lambda: serve.main(["--checkpoint", "no_such.msgpack"]),
+            "cli.stream": lambda: stream.main(["--checkpoint", "no_such.msgpack",
+                                               "--videos", "v.mp4"]),
         }
         for name, fn in calls.items():
             try:
@@ -80,7 +92,7 @@ def test_default_device_raises_without_cuda():
     """)
     assert r.returncode == 0, r.stderr
     assert "FELL_BACK" not in r.stdout, r.stdout
-    assert r.stdout.count("RAISED") == 6, r.stdout
+    assert r.stdout.count("RAISED") == 10, r.stdout
 
 
 def test_nms_cuda_wrapper_refuses_cpu_tensors():

@@ -102,7 +102,8 @@ def test_unported_pipeline_options_raise():
     cfg["detector"].update(DET)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DetectionPipeline(cfg, device="cpu", mesh_config=object())
-    # topdown pose is ported; its checkpoint needs the msgpack reader
-    cfg["detector"].update(pose_mode="topdown", pose_topdown_checkpoint="pose.msgpack")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # topdown pose and its checkpoint are ported: the pipeline reads the file
+    # (test_torch_load_model.py holds the loaded net against JAX)
+    cfg["detector"].update(pose_mode="topdown", pose_topdown_checkpoint="no/such/pose.msgpack")
+    with pytest.raises(FileNotFoundError):
         DetectionPipeline(cfg, device="cpu")
