@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch/CUDA port (cvsd_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA card and nvcc; about a minute on an H100
+    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 2.5 minutes on an H100
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
@@ -42,18 +42,35 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      canvases (each response equal to a serial call's) with the
      nms_fixpoint kernel's launches counted. Rates and latencies of (b) and
      (c) are read in the steady window only (see ``steady_state``)
+  8. preprocess (Pipeline A's first half): the default configuration (v5m
+     640 bf16, batch 32, nms_fixpoint) through ``preprocess_ucf_crime`` on 8
+     rendered 320x240 videos of 128 frames, sequential and then max_streams
+     4: CSV bytes equal, one nms_fixpoint launch per detector batch; then the
+     test-sized fixture (f32) on the card and on the CPU, frame by frame and
+     row by row. Without cv2 it holds that preprocess_ucf_crime raises
+     naming cv2
+  9. tabular (Pipeline A's second half): XceptionTimeClassifier (nf 16,
+     depth 4, T 64) trained 3 epochs on 8,192 synthetic windows (valid
+     accuracy >= 0.8), predict_proba throughput on them and on the windows of
+     phase 8's CSVs, a save -> load round trip, one train step card vs CPU;
+     then ``python -m cvsd_tpu_torch.cli.preprocess`` on the fixture and
+     ``python -m cvsd_tpu_torch.cli.train_tabular`` on synthetic tracks, as
+     subprocesses on their default device (the card)
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
      then the result line
 
-The float32 comparisons are also read with TF32 allowed: the head-map,
-heatmap, keypoint-confidence and score limits must tell TF32 from float32;
-the fixture's TF32 reading is only printed (its small detector moves the
-keypoints little either way).
+The port runs float32 as float32: building a float32 entry point turns
+TF32 off (``utils/device.py::use_float32_math``), so the serve subprocess
+of phase 7 is held to load_model's float32 scores. The float32 comparisons
+are also read with TF32 allowed, set after the build: the head-map,
+heatmap, keypoint-confidence, score and tabular-gradient limits must tell
+TF32 from float32; the stream fixture's TF32 reading is only printed (its
+small detector moves the keypoints little either way).
 
-Kernel launch counts are set to 0 just before each detect, stream and
-serve phase drives a pipeline and read just after (the serve subprocess's
-launches are its own; phase 7(c) counts the in-process server's); the
-launches that compare a kernel
+Kernel launch counts are set to 0 just before each detect, stream, serve
+and preprocess phase drives a pipeline and read just after (the serve
+subprocess's launches are its own; phase 7(c) counts the in-process
+server's); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
 entry point (in the reference only a test reaches it), so no phase launches
 it and its count on the main path is 0. Bounds are taken against the H100
@@ -117,6 +134,13 @@ TOL_POSE_CONF_F32 = 4e-6
 # where the card kept another anchor's box differs by a whole crop, which no
 # float32 limit bounds (PERF.md gives the readings).
 TOL_FIXTURE2_KPT = 4e-6
+
+# The tabular classifier's one train step, float32 card vs CPU on the same
+# batch and initial weights (PERF.md gives the readings): the gradients, each
+# tensor against its largest entry, and the loss. The gradient limit must
+# fail TF32.
+TOL_TAB_GRAD_F32 = 1e-3
+TOL_TAB_LOSS_F32 = 1e-5
 
 # the slice-2 configuration: the defaults with these detector settings
 SLICE2 = dict(head_variant="v8dfl", num_classes=80, reg_max=16, width_mult=0.75,
@@ -572,12 +596,11 @@ def write_checkpoints(tmp: str, modules: dict) -> dict:
     return out
 
 
-def drive_server_subprocess(ckpt: dict, tf32_defaults, dev) -> dict:
+def drive_server_subprocess(ckpt: dict, dev) -> dict:
     """7(b): the serve CLI as a subprocess; its warmup and address lines,
     /healthz, SCORE_CLIENTS concurrent /score clients against load_model's
-    scores here (rtol 1e-5, under the TF32 settings the subprocess runs
-    with: PyTorch's defaults), then one JPEG to /detect. Stops the process
-    whatever happens."""
+    float32 scores here (rtol 1e-5; the subprocess runs float32 as float32
+    too), then one JPEG to /detect. Stops the process whatever happens."""
     from cvsd_tpu_torch.eval.evaluate import load_model
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -632,21 +655,16 @@ def drive_server_subprocess(ckpt: dict, tf32_defaults, dev) -> dict:
         with ThreadPoolExecutor(SCORE_CLIENTS) as ex:
             results = list(ex.map(client, picks))
         steady = steady_state([[(t0, t1) for *_r, t0, t1 in res] for res in results])
-        card_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
-        try:
-            direct = [scorer.score(p) for p in payloads]
-            # one dispatch's scorer call alone, at the batch the server gathered
-            per = int(round(float(http(f"{url}/healthz")[1]["microbatch"]["score"]
-                                   ["items_per_batch"])))
-            cat = np.concatenate([payloads[i % SCORE_BODIES] for i in range(max(per, 1))])
+        direct = [scorer.score(p) for p in payloads]
+        # one dispatch's scorer call alone, at the batch the server gathered
+        per = int(round(float(http(f"{url}/healthz")[1]["microbatch"]["score"]
+                               ["items_per_batch"])))
+        cat = np.concatenate([payloads[i % SCORE_BODIES] for i in range(max(per, 1))])
+        scorer.score(cat)
+        t1 = time.perf_counter()
+        for _ in range(10):
             scorer.score(cat)
-            t1 = time.perf_counter()
-            for _ in range(10):
-                scorer.score(cat)
-            direct_ms = (time.perf_counter() - t1) / 10 * 1e3
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = card_tf32
+        direct_ms = (time.perf_counter() - t1) / 10 * 1e3
         worst = 0.0
         for res in results:
             for i, status, body, _t0, _t1 in res:
@@ -782,6 +800,391 @@ def drive_detect_canvas(ckpt: dict, dev, nms_mod, render) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phases 8 and 9: Pipeline A (preprocess to BBox CSVs, then the tabular classifier)
+
+PRE_VIDEOS = 8  # rendered 320x240 videos of PRE_FRAMES frames, half of them anomalous
+PRE_FRAMES = 128
+# the port's Pipeline-A test fixture (tests/test_torch_pipeline_a.py): its
+# detector, and two 24-frame videos in a list with a filtered-out category
+# and a missing file
+FIXTURE_DET = dict(img_size=128, width_mult=0.25, depth_mult=0.34, batch_size=8,
+                   conf_threshold=0.0, max_detections=8, dtype="float32")
+TOL_BOX_PX = 2e-3  # card vs CPU box coordinates, px of the 320x240 source
+
+
+def ucf_layout(root: str, videos: list, lines: list, has_cv2: bool) -> str:
+    """A UCF-Crime directory: ``videos`` (category, name, frames, seed)
+    rendered by the port's write_test_video (without cv2, empty files in
+    their place), and ``lines`` as its Anomaly_Train.txt."""
+    from cvsd_tpu_torch.data.video import write_test_video
+
+    for cat, name, frames, seed in videos:
+        os.makedirs(os.path.join(root, cat), exist_ok=True)
+        path = os.path.join(root, cat, name)
+        if has_cv2:
+            write_test_video(path, num_frames=frames, seed=seed)
+        else:
+            open(path, "wb").close()
+    with open(os.path.join(root, "Anomaly_Train.txt"), "w") as f:
+        f.write("\n".join(lines))
+    return root
+
+
+def read_dir(d: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def drive_preprocess(tmp: str, dev, cpu, nms_mod) -> tuple:
+    """8: the preprocess driver at full width (the default configuration:
+    v5m 640 bf16, batch 32, nms_fixpoint) on PRE_VIDEOS rendered videos,
+    sequential and then max_streams 4, each run's nms_fixpoint launches
+    equal to its detector batches and both runs' CSV bytes equal; then the
+    test-sized fixture (f32) on the card and on the CPU. Without cv2 it
+    holds that preprocess_ucf_crime raises the port's RuntimeError naming
+    cv2.
+    Returns (numbers, {run: launch counts}, CSV paths of the sequential run,
+    the fixture's directory)."""
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.data.bbox_schema import read_bboxes
+    from cvsd_tpu_torch.data.video import VideoBatcher
+    from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline, preprocess_ucf_crime
+
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    cats = ("Shoplifting", "Shopping")
+    videos = [(cats[i % 2], f"{cats[i % 2]}{i:03d}_x264.mp4", PRE_FRAMES, 50 + i)
+              for i in range(PRE_VIDEOS)]
+    root = ucf_layout(os.path.join(tmp, "ucf"), videos, [f"{c}/{n}" for c, n, _f, _s in videos],
+                      has_cv2)
+    cfg = get_default_config()
+    d = cfg["detector"]
+    pipe = DetectionPipeline(cfg, device=dev, seed=30)
+    if not has_cv2:
+        try:
+            preprocess_ucf_crime(cfg, root, output_dir=os.path.join(tmp, "out"), pipeline=pipe,
+                                 verbose=False)
+        except RuntimeError as e:
+            if "cv2" not in str(e):
+                raise
+            log(f"[preprocess] no cv2 here: preprocess_ucf_crime raised {e!r}")
+            return {"cv2": False, "raised": str(e)}, {}, [], root
+        fail("preprocess_ucf_crime ran without cv2: expected the port's RuntimeError naming cv2")
+    batches = [0]
+    full = pipe._full
+
+    def counted_full(*a):  # one call per detector batch
+        batches[0] += 1
+        return full(*a)
+
+    pipe._full = counted_full
+    pipe.detect_frames(np.zeros((pipe.batch_size, 240, 320, 3), np.uint8))  # warm-up
+    torch.cuda.synchronize()
+    runs, counts, outs = {}, {}, {}
+    for streams in (1, 4):
+        tag = "sequential" if streams == 1 else f"max_streams_{streams}"
+        outs[tag] = os.path.join(tmp, tag)
+        batches[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(nms_mod)
+        t0 = time.perf_counter()
+        stats = preprocess_ucf_crime(cfg, root, output_dir=outs[tag], pipeline=pipe,
+                                     verbose=False, max_streams=streams)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[tag] = launches(nms_mod)
+        want = {"nms_fixpoint": batches[0], "nms_seq": 0, "nms_seq_multi": 0}
+        if counts[tag] != want or not batches[0]:
+            fail(f"preprocess ({tag}) launched the NMS kernels {counts[tag]} in {batches[0]} "
+                 f"detector batches, expected one nms_fixpoint launch a batch")
+        if stats["videos"] != PRE_VIDEOS or stats["frames"] != PRE_VIDEOS * PRE_FRAMES:
+            fail(f"preprocess ({tag}) read {stats['videos']} videos, {stats['frames']} frames")
+        if not stats["rows"]:
+            fail(f"preprocess ({tag}) wrote no rows")
+        runs[tag] = {"videos": stats["videos"], "frames": stats["frames"], "rows": stats["rows"],
+                     "batches": batches[0], "seconds": wall,
+                     "frames_per_s": stats["frames"] / wall, "driver_fps": stats["fps"],
+                     "stage_seconds": stats.get("stage_seconds"),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "nms_launches": counts[tag]}
+        stages = {k: round(v, 4) for k, v in (stats.get("stage_seconds") or {}).items()}
+        log(f"[preprocess] {d['img_size']} {d['dtype']} B={pipe.batch_size}, {tag}: "
+            f"{PRE_VIDEOS} videos x {PRE_FRAMES} frames 320x240 in {wall:.2f} s = "
+            f"{runs[tag]['frames_per_s']:.1f} frames/s (preprocess_ucf_crime's own "
+            f"{stats['fps']:.1f}), "
+            f"{stats['rows']} rows, {batches[0]} detector batches, nms launches {counts[tag]}, "
+            f"peak {runs[tag]['peak_mem_gb']:.2f} GB, stages {json.dumps(stages)}")
+    seq, mux = read_dir(outs["sequential"]), read_dir(outs["max_streams_4"])
+    if seq != mux or len(seq) != 2:
+        fail(f"preprocess: the multiplexed CSVs differ from the sequential ones "
+             f"({sorted(seq)} vs {sorted(mux)})")
+    log(f"[preprocess] sequential and max_streams 4 CSVs byte-identical "
+        f"({', '.join(f'{n} {len(b)} B' for n, b in seq.items())})")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # the test-sized fixture, card vs CPU: detections frame by frame, then the rows
+    fx_root = ucf_layout(
+        os.path.join(tmp, "fixture"),
+        [("Shoplifting", "Shoplifting001_x264.mp4", 24, 0),
+         ("Shopping", "Shopping001_x264.mp4", 24, 1)],
+        ["Abuse/Abuse001_x264.mp4", "Shoplifting/Shoplifting001_x264.mp4",
+         "Shopping/Shopping001_x264.mp4", "Shoplifting/Shoplifting999_missing.mp4"], True)
+    fcfg = get_default_config()
+    fcfg["detector"].update(FIXTURE_DET)
+    p_card = DetectionPipeline(fcfg, device=dev, seed=31)
+    p_cpu = DetectionPipeline(fcfg, device=cpu,
+                              state_dict={k: v.cpu() for k, v in p_card.model.state_dict().items()})
+    fx = {}
+    for name, p in (("card", p_card), ("cpu", p_cpu)):
+        out = os.path.join(tmp, f"fixture_{name}")
+        stats = preprocess_ucf_crime(fcfg, fx_root, output_dir=out, pipeline=p, verbose=False)
+        rows = {f: read_bboxes(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+        fx[name] = (stats, rows)
+    (s_card, rows_card), (s_cpu, rows_cpu) = fx["card"], fx["cpu"]
+    for k in ("videos", "frames", "rows", "skipped"):
+        if s_card[k] != s_cpu[k] and k != "rows":
+            fail(f"fixture preprocess {k}: card {s_card[k]} vs CPU {s_cpu[k]}")
+    # per frame: the detections card vs CPU on the same decoded frames
+    differ = []  # (video, frame, score gap at the first differing slot)
+    worst_det = 0.0
+    for cat, name in (("Shoplifting", "Shoplifting001_x264.mp4"),
+                      ("Shopping", "Shopping001_x264.mp4")):
+        for batch in VideoBatcher(os.path.join(fx_root, cat, name), batch_size=8):
+            a, b = p_card.detect_frames(batch.frames), p_cpu.detect_frames(batch.frames)
+            for i in np.flatnonzero(batch.mask):
+                va, vb = a[3][i], b[3][i]
+                same = np.array_equal(va, vb) and (
+                    not va.any() or np.abs(a[0][i][va] - b[0][i][vb]).max() <= TOL_BOX_PX)
+                if same:
+                    if va.any():
+                        worst_det = max(worst_det, float(np.abs(a[0][i][va] - b[0][i][vb]).max()))
+                    continue
+                n = int(min(va.sum(), vb.sum()))
+                slot = next((j for j in range(n) if np.abs(a[0][i][j] - b[0][i][j]).max()
+                             > TOL_BOX_PX), n)
+                gap = (abs(float(a[2][i][slot]) - float(b[2][i][slot])) if slot < n
+                       else float("nan"))
+                differ.append((name, int(batch.frame_numbers[i]), slot, gap))
+    frames_total = s_cpu["frames"]
+    # rows: every video without a differing frame, keys equal and boxes within the limit
+    key = ("clip", "name", "frame", "person", "is_anomaly", "anomaly")
+    bad_videos = {d[0] for d in differ}
+    worst_row, compared = 0.0, 0
+    for f in rows_cpu:
+        rc = [r for r in rows_cpu[f] if r.name not in bad_videos]
+        rg = [r for r in rows_card.get(f, []) if r.name not in bad_videos]
+        if [tuple(getattr(r, k) for k in key) for r in rc] != \
+                [tuple(getattr(r, k) for k in key) for r in rg]:
+            fail(f"fixture preprocess rows of {f}: keys differ card vs CPU in videos whose "
+                 f"detections agree")
+        compared += len(rc)
+        for r1, r2 in zip(rc, rg):
+            worst_row = max(worst_row, abs(r1.left - r2.left) * 320, abs(r1.top - r2.top) * 240,
+                            abs(r1.width - r2.width) * 320, abs(r1.height - r2.height) * 240)
+    if not compared:
+        fail("fixture preprocess: no video's detections agree card vs CPU")
+    fixture = {"frames": frames_total, "rows_card": s_card["rows"], "rows_cpu": s_cpu["rows"],
+               "frames_with_other_detections": len(differ),
+               "differing_frames": [{"video": v, "frame": fr, "slot": sl, "score_gap": g}
+                                    for v, fr, sl, g in differ],
+               "max_box_err_px": worst_det, "rows_compared": compared,
+               "max_row_err_px": worst_row}
+    log(f"[preprocess] fixture img128 f32, card vs CPU: {frames_total} frames, rows "
+        f"{s_card['rows']} / {s_cpu['rows']}; {len(differ)} frames keep other detections"
+        + "".join(f" ({v} frame {fr}, slot {sl}: score gap {g:.3e})" for v, fr, sl, g in differ)
+        + f"; elsewhere boxes within {worst_det:.2e} px and {compared} rows, keys equal, "
+          f"within {worst_row:.2e} px (limit {TOL_BOX_PX})")
+    if 20 * len(differ) > frames_total:
+        fail(f"fixture preprocess: {len(differ)} of {frames_total} frames keep other detections "
+             f"card vs CPU (at most 1 in 20)")
+    if worst_row > TOL_BOX_PX:
+        fail(f"fixture preprocess rows card vs CPU differ by {worst_row:.2e} px > {TOL_BOX_PX}")
+    out = {"cv2": True, "runs": runs, "csv_bytes": {n: len(b) for n, b in seq.items()},
+           "fixture": fixture}
+    return out, counts, [os.path.join(outs["sequential"], n) for n in seq], fx_root
+
+
+TAB = dict(seq_len=64, num_channels=4, nf=16)  # the reference's default width (depth 4)
+TAB_WINDOWS = 8192
+TAB_EPOCHS = 3
+TAB_BATCH = 64
+TAB_LR = 3e-4
+
+
+def tabular_windows(n: int, seed: int):
+    """Two separable classes (the JAX package's test_xception_time): noise,
+    class 1 with a sine on channel 0."""
+    rng = np.random.default_rng(seed)
+    T, C = TAB["seq_len"], TAB["num_channels"]
+    X = rng.normal(0, 0.3, (n, T, C)).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    X[y == 1, :, 0] += 2.0 * np.sin(np.linspace(0, 4 * np.pi, T)).astype(np.float32)
+    return X, y
+
+
+def tabular_step_gap(clf_card, clf_cpu, init: dict, xb: np.ndarray, yb: np.ndarray,
+                     tf32: bool) -> dict:
+    """One Adam step on the same batch from the same initial weights, card vs
+    CPU (float32; with ``tf32`` the card's flags are set after its build):
+    the loss, the gradients and the BatchNorm running statistics, each
+    max|card - cpu| / max|cpu| per tensor, the worst tensor. The head's
+    Conv_0 and Conv_1 biases are left out: they feed a train-mode BatchNorm,
+    so their gradient is zero up to rounding in both."""
+    out = {}
+    for name, clf in (("card", clf_card), ("cpu", clf_cpu)):
+        clf.model.load_state_dict(init)
+        clf.model.train()
+        opt = torch.optim.Adam(clf.model.parameters(), lr=TAB_LR, betas=(0.9, 0.999), eps=1e-8)
+        x = torch.from_numpy(xb).to(clf.device).transpose(1, 2).contiguous()
+        y = torch.from_numpy(yb.astype(np.int64)).to(clf.device)
+        set_tf32(tf32 and name == "card")
+        try:
+            loss = float(clf._step(opt, x, y))
+        finally:
+            set_tf32(False)
+        grads = {n: p.grad.detach().cpu() for n, p in clf.model.named_parameters()
+                 if n not in ("Conv_0.bias", "Conv_1.bias")}
+        stats = {n: b.detach().cpu() for n, b in clf.model.named_buffers()}
+        out[name] = (loss, grads, stats)
+    (l_g, g_g, s_g), (l_c, g_c, s_c) = out["card"], out["cpu"]
+
+    def worst(a, b):
+        return max(float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b)
+
+    return {"loss": abs(l_g - l_c) / abs(l_c), "grad": worst(g_g, g_c),
+            "batch_stats": worst(s_g, s_c)}
+
+
+def drive_tabular(tmp: str, dev, cpu, csvs: list) -> dict:
+    """9: XceptionTimeClassifier at the reference's default width on the
+    card: 3 epochs over TAB_WINDOWS synthetic windows (valid accuracy >= 0.8,
+    the JAX package's own bar), predict_proba throughput at batch 256 on
+    them and on the windows of the preprocess phase's CSVs, a save -> load
+    round trip predicting identically, and one train step card vs CPU in
+    float32 (and with TF32 allowed, which its limit must fail)."""
+    from cvsd_tpu_torch.models.xception_time import (XceptionTimeClassifier, stratified_split,
+                                                     windows_from_bbox_csv)
+
+    X, y = tabular_windows(TAB_WINDOWS, 60)
+    clf = XceptionTimeClassifier(**TAB, seed=61, device=dev)
+    t0 = time.perf_counter()
+    hist = clf.train(X, y, epochs=TAB_EPOCHS, lr=TAB_LR, batch_size=TAB_BATCH)["history"]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = (len(stratified_split(X, y, 0.2, 61)[0]) // TAB_BATCH) * TAB_EPOCHS
+    if not all(np.isfinite(r["loss"]) for r in hist) or hist[-1]["valid_acc"] < 0.8:
+        fail(f"tabular training did not learn the separable classes: {hist}")
+
+    def proba_rate(W):
+        clf.predict_proba(W[:256])  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        P = clf.predict_proba(W)
+        dt = time.perf_counter() - t1
+        if P.shape != (len(W), 2) or not np.isfinite(P).all():
+            fail("predict_proba gave non-finite or misshapen probabilities")
+        return len(W) / dt, P
+
+    rate, P = proba_rate(X)
+    Xcsv = windows_from_bbox_csv(csvs, seq_len=TAB["seq_len"], stride=32)[0] if csvs else X[:0]
+    rate_csv = proba_rate(Xcsv)[0] if len(Xcsv) else None
+    path = os.path.join(tmp, "xception_time.msgpack")
+    clf.save(path)
+    back = XceptionTimeClassifier.load(path, device=dev)
+    if not np.array_equal(back.predict_proba(X), P):
+        fail("the tabular checkpoint does not predict identically after save -> load")
+
+    # one train step, card vs CPU, the same batch and initial weights
+    clf_cpu = XceptionTimeClassifier(**TAB, seed=61, device=cpu)
+    init = {k: v.cpu() for k, v in clf._init().items()}
+    xb, yb = X[:TAB_BATCH], y[:TAB_BATCH]
+    gap = tabular_step_gap(clf, clf_cpu, init, xb, yb, tf32=False)
+    gap_tf32 = tabular_step_gap(clf, clf_cpu, init, xb, yb, tf32=True)
+    out = {"windows": len(X), "epochs": TAB_EPOCHS, "batch": TAB_BATCH, "steps": steps,
+           "train_seconds": train_s, "steps_per_s": steps / train_s,
+           "history": hist, "predict_proba_windows_per_s": rate,
+           "csv_windows": int(len(Xcsv)), "csv_predict_proba_windows_per_s": rate_csv,
+           "checkpoint_bytes": os.path.getsize(path),
+           "f32_step_rel_err": gap, "f32_step_rel_err_tf32": gap_tf32}
+    log(f"[tabular] XceptionTime nf {TAB['nf']} T {TAB['seq_len']} B={TAB_BATCH}: {steps} steps "
+        f"in {train_s:.2f} s = {out['steps_per_s']:.1f} steps/s (3 validation passes "
+        f"included); loss {[round(r['loss'], 4) for r in hist]}, valid acc "
+        f"{[round(r['valid_acc'], 4) for r in hist]}; predict_proba {rate:.0f} windows/s at "
+        f"batch 256 on {len(X)} windows, {len(Xcsv)} windows from the preprocess CSVs"
+        + (f" at {rate_csv:.0f} windows/s" if rate_csv else "")
+        + f"; save -> load predicts identically ({out['checkpoint_bytes']} B)")
+    log(f"[tabular] one train step card vs CPU f32, max|card-cpu|/max|cpu|: loss "
+        f"{gap['loss']:.2e}, gradients {gap['grad']:.2e}, BatchNorm statistics "
+        f"{gap['batch_stats']:.2e} (with TF32: {gap_tf32['loss']:.2e}, {gap_tf32['grad']:.2e}, "
+        f"{gap_tf32['batch_stats']:.2e})")
+    if gap["grad"] > TOL_TAB_GRAD_F32 or gap["loss"] > TOL_TAB_LOSS_F32:
+        fail(f"tabular train step card vs CPU f32: gradients {gap['grad']:.2e} > "
+             f"{TOL_TAB_GRAD_F32} or loss {gap['loss']:.2e} > {TOL_TAB_LOSS_F32}")
+    if gap_tf32["grad"] <= TOL_TAB_GRAD_F32:
+        fail(f"the tabular gradient limit {TOL_TAB_GRAD_F32} passes TF32 ({gap_tf32['grad']:.2e})")
+    return out
+
+
+def cli_command(name: str, *args: str) -> list:
+    """A port CLI as a user starts it, on its default device (the card)."""
+    return [sys.executable, "-m", f"cvsd_tpu_torch.cli.{name}", *args]
+
+
+def drive_clis(tmp: str, fixture_root: str, has_cv2: bool, dev) -> dict:
+    """8(b), 9(b): ``python -m cvsd_tpu_torch.cli.preprocess`` on the
+    fixture layout (the default configuration; without cv2 it must exit
+    non-zero naming cv2), and ``python -m cvsd_tpu_torch.cli.train_tabular``
+    on a CSV of 256 synthetic 64-frame tracks, whose file the port loads on
+    the card and predicts with."""
+    from cvsd_tpu_torch.data.bbox_schema import BBox, append_bboxes
+    from cvsd_tpu_torch.models.xception_time import XceptionTimeClassifier
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    t0 = time.perf_counter()
+    r = subprocess.run(cli_command("preprocess", "--dataset_dir", fixture_root, "--output_dir",
+                                   os.path.join(tmp, "cli_csvs")),
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    out["preprocess_s"] = time.perf_counter() - t0
+    if has_cv2:
+        if r.returncode != 0:
+            fail(f"cli.preprocess exited {r.returncode}: {r.stderr[-2000:]}")
+        stats = json.loads(r.stdout[r.stdout.index("{"):])
+        if stats["videos"] != 2 or stats["frames"] != 48 or not stats["rows"]:
+            fail(f"cli.preprocess on the fixture: {stats}")
+        out["preprocess_rows"] = stats["rows"]
+    elif r.returncode == 0 or "cv2" not in r.stderr:
+        fail(f"cli.preprocess without cv2 exited {r.returncode}, expected an error naming cv2")
+    X, y = tabular_windows(256, 62)
+    csv = os.path.join(tmp, "cli_tracks.csv")
+    append_bboxes(csv, [BBox(clip=i + 1, name=f"v{i}.mp4", frame=f + 1, person=1.0,
+                             left=float(X[i, f, 0]), top=float(X[i, f, 1]),
+                             width=float(X[i, f, 2]), height=float(X[i, f, 3]),
+                             is_anomaly=bool(y[i]), anomaly="Shoplifting" if y[i] else "Shopping")
+                        for i in range(len(X)) for f in range(X.shape[1])])
+    model = os.path.join(tmp, "cli_xception_time.msgpack")
+    t0 = time.perf_counter()
+    r = subprocess.run(cli_command("train_tabular", "--csv", csv, "--epochs", "2", "--output",
+                                   model), cwd=root, capture_output=True, text=True, timeout=600)
+    out["train_tabular_s"] = time.perf_counter() - t0
+    if r.returncode != 0 or "train_acc" not in r.stdout:
+        fail(f"cli.train_tabular exited {r.returncode}: {r.stderr[-2000:]}")
+    out["train_acc"] = json.loads(r.stdout.strip().splitlines()[-1])["train_acc"]
+    P = XceptionTimeClassifier.load(model, device=dev).predict_proba(X)
+    if P.shape != (len(X), 2) or not np.isfinite(P).all():
+        fail("the train_tabular CLI's file does not predict finite probabilities on the card")
+    log(f"[cli] python -m cvsd_tpu_torch.cli.preprocess on the fixture (default configuration, "
+        f"the card): " + (f"{out['preprocess_rows']} rows" if has_cv2 else "no cv2, exited "
+                          "naming it") + f" in {out['preprocess_s']:.1f} s; "
+        f"python -m cvsd_tpu_torch.cli.train_tabular on 256 synthetic tracks: train_acc "
+        f"{out['train_acc']:.4f} in {out['train_tabular_s']:.1f} s, its file predicts on the card")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -805,8 +1208,6 @@ def main() -> None:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     cpu = torch.device("cpu")
-    # PyTorch's own TF32 settings, which the serve subprocess of phase 7 runs with
-    tf32_defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 
     # -- 1. card and build ---------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1240,12 +1641,15 @@ def main() -> None:
         c["data"]["stride"] = 6
         return c
 
-    def fixture_run(device, slice2: bool = False):
+    def fixture_run(device, slice2: bool = False, tf32: bool = False):
+        """The fixture's events and scored windows; with ``tf32``, TF32 is set
+        after the build (building a float32 entry point turns it off)."""
         c = fixture_config(slice2)
         pose = build_pose_topdown(c, device=device, seed=9) if slice2 else None
         sm = build_shopformer(c, device=device, seed=6)
         p = StreamingPipeline(c, ShopformerScorer(sm, c, device=device), device=device, seed=8,
                               pose_model=pose)
+        set_tf32(tf32)
         raw, prepared = [], []
         prepare = p._prepare_window
 
@@ -1256,7 +1660,10 @@ def main() -> None:
 
         p._prepare_window = recording_prepare
         srcs = [ArraySource(f"v{i}.mp4", render_frames(40, 160, 128, seed=i)) for i in range(6)]
-        events = p.run_stream(RoundRobinReader(p, srcs, (128, 160), 4))
+        try:
+            events = p.run_stream(RoundRobinReader(p, srcs, (128, 160), 4))
+        finally:
+            set_tf32(False)
         return events, np.stack(raw), np.stack(prepared), p.scorer
 
     def ekey(e):
@@ -1276,9 +1683,7 @@ def main() -> None:
 
     ev_gpu, raw_gpu_w, prep_gpu, scorer_gpu = fixture_run(dev)
     ev_cpu, raw_cpu_w, prep_cpu, scorer_cpu = fixture_run(cpu)
-    set_tf32(True)
-    ev_tf32, raw_tf32_w, _prep_tf32, _ = fixture_run(dev)
-    set_tf32(False)
+    ev_tf32, raw_tf32_w, _prep_tf32, _ = fixture_run(dev, tf32=True)
     bad = key_mismatch(ev_gpu, ev_cpu)
     if bad:
         fail(f"fixture events differ card vs CPU: {bad}")
@@ -1414,7 +1819,7 @@ def main() -> None:
         ckpt = write_checkpoints(tmp, {
             "shopformer": (build_shopformer(cfg7, device=dev, seed=20), cfg7),
             "detector": (build_detector(cfg7, device=dev, seed=21), cfg7)})
-        served = drive_server_subprocess(ckpt, tf32_defaults, dev)
+        served = drive_server_subprocess(ckpt, dev)
         canvas, serve_counts = drive_detect_canvas(ckpt, dev, nms_mod, render_frames)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1422,10 +1827,24 @@ def main() -> None:
                              for name, c in ckpt.items()},
              "http": served, "detect_canvas": canvas, "seconds": time.perf_counter() - t7}
 
+    # -- 8, 9. Pipeline A: preprocess to BBox CSVs, then the tabular classifier -
+    t8 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_pipeline_a_")
+    try:
+        pre, pre_counts, csvs, fx_root = drive_preprocess(tmp, dev, cpu, nms_mod)
+        pre["seconds"] = time.perf_counter() - t8
+        t9 = time.perf_counter()
+        tabular = drive_tabular(tmp, dev, cpu, csvs)
+        tabular["seconds"] = time.perf_counter() - t9
+        clis = drive_clis(tmp, fx_root, pre["cv2"], dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
-                      "fixture_slice2": fixture2, "serve": serve,
+                      "fixture_slice2": fixture2, "serve": serve, "preprocess": pre,
+                      "tabular": tabular, "pipeline_a_clis": clis,
                       "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
@@ -1450,6 +1869,7 @@ def main() -> None:
     ]
     for k in kernels:
         k["launches_serve"] = serve_counts[k["name"]]
+        k["launches_preprocess"] = {run: c[k["name"]] for run, c in pre_counts.items()}
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,8 +3,8 @@ detector checkpoints (the port's copy of ``cvsd_tpu/cli/common.py``).
 
 ``--device`` takes the place of the JAX CLIs' ``JAX_PLATFORMS``: unset, the
 entry points run on the CUDA card and raise without one; ``--device cpu``
-runs them on the host. The persistent compile cache (ROADMAP.md module
-queue, item 15) and the mesh (item 14) are not ported.
+runs them on the host. The persistent compile cache (ROADMAP.md, module
+queue: The rest) and the mesh (module queue: Parallel) are not ported.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ from __future__ import annotations
 import argparse
 
 from cvsd_tpu_torch.cli.common import add_config_args, resolve_config
+from cvsd_tpu_torch.utils.device import use_float32_math
 
 
 def main(argv=None) -> None:
@@ -32,6 +33,7 @@ def main(argv=None) -> None:
                         "request then pays cuDNN's algorithm choice and the "
                         "NMS kernel's nvcc build)")
     args = p.parse_args(argv)
+    use_float32_math()
 
     from cvsd_tpu_torch.config import apply_overrides
     from cvsd_tpu_torch.eval.evaluate import load_model

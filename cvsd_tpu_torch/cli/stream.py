@@ -5,7 +5,7 @@ track -> Shopformer anomaly scores.
         --videos a.mp4 b.mp4 --concurrent --output events.json [--device cpu]
 
 The port runs on one card: ``--no_mesh`` is accepted and changes nothing
-(the mesh is ROADMAP.md module queue, item 14).
+(the mesh is ROADMAP.md, module queue: Parallel).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import dataclasses
 import json
 
 from cvsd_tpu_torch.cli.common import add_config_args, resolve_config
+from cvsd_tpu_torch.utils.device import use_float32_math
 
 
 def main(argv=None) -> None:
@@ -40,6 +41,7 @@ def main(argv=None) -> None:
     p.add_argument("--no_mesh", action="store_true",
                    help="accepted for the JAX CLI's sake: the port runs on one device")
     args = p.parse_args(argv)
+    use_float32_math()
     if args.events_jsonl and not args.concurrent:
         p.error("--events_jsonl requires --concurrent")
 

@@ -1,6 +1,7 @@
 """COCO left/right keypoint swap (the part of ``cvsd_tpu/data/augment.py``
 that inference needs: flip-TTA mirrors keypoints with it). The batched pose
-augmentation for training is not ported yet (ROADMAP.md module queue, item 10)."""
+augmentation for training is not ported yet (ROADMAP.md, module queue:
+Shopformer training and evaluation)."""
 
 from __future__ import annotations
 

@@ -129,3 +129,24 @@ class VideoBatcher:
         finally:
             cap.release()
             q.put(None)
+
+
+def write_test_video(path: str, num_frames: int = 48, width: int = 320, height: int = 240,
+                     fps: float = 30.0, seed: int = 0) -> str:
+    """Write a small mp4 (moving bright rectangles on noise), the stand-in
+    for UCF-Crime clips in tests and on the card; the same frames and codec
+    as the JAX package's ``write_test_video``."""
+    cv2 = _cv2()
+    rng = np.random.default_rng(seed)
+    fourcc = cv2.VideoWriter_fourcc(*"mp4v")
+    w = cv2.VideoWriter(path, fourcc, fps, (width, height))
+    try:
+        for t in range(num_frames):
+            frame = rng.integers(0, 60, (height, width, 3)).astype(np.uint8)
+            x = int((t / max(num_frames - 1, 1)) * (width - 60))
+            frame[40:140, x : x + 50] = (220, 180, 120)
+            frame[height - 120 : height - 30, width - 90 : width - 40] = (120, 220, 160)
+            w.write(frame)
+    finally:
+        w.release()
+    return path

@@ -2,7 +2,8 @@
 ``ShopformerScorer`` and ``load_model`` in ``cvsd_tpu/eval/evaluate.py``).
 ``load_model`` reads the JAX package's msgpack checkpoints through
 ``utils/checkpoint.py``; the evaluation drivers (``evaluate_checkpoint`` and
-its plots) wait for the training slice (ROADMAP.md module queue, item 10)."""
+its plots) wait for the training slice (ROADMAP.md, module queue: Shopformer
+training and evaluation)."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from cvsd_tpu_torch.config import Config, get_default_config, merge_configs
 from cvsd_tpu_torch.data.datamodule import batch_iterator
 from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, Shopformer, build_shopformer
 from cvsd_tpu_torch.utils.checkpoint import load_checkpoint
-from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device
+from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
 from cvsd_tpu_torch.utils.weights import load_flax_variables
 
 
@@ -26,6 +27,7 @@ class ShopformerScorer:
 
     def __init__(self, model: Shopformer, config: Dict[str, Any], device: DeviceLike = None):
         self.device = resolve_device(device)
+        use_float32_math()  # the Shopformer scores in float32
         self.model = model.to(self.device).eval()
         self.config = Config(config)
 
@@ -58,6 +60,7 @@ def load_model(checkpoint_path: str, config: Optional[Dict[str, Any]] = None,
     the CUDA card, raising without one). The GCAE decoder's variables, which
     the port does not hold, are skipped."""
     dev = resolve_device(device)
+    use_float32_math()
     state, meta = load_checkpoint(checkpoint_path)
     if config is None:
         config = meta.get("config")

@@ -397,7 +397,7 @@ def detector_from_config(config: Dict[str, Any]) -> PersonDetector:
     d = config.get("detector", {})
     if d.get("quantized"):
         raise NotImplementedError(
-            "detector.quantized (int8) is not ported yet: ROADMAP.md module queue, item 13")
+            "detector.quantized (int8) is not ported yet: ROADMAP.md, module queue: int8")
     return PersonDetector(
         img_size=int(d.get("img_size", 640)),
         width_mult=float(d.get("width_mult", 0.75)),

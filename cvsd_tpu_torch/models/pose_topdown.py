@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device
+from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
 
 
 def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int,
@@ -141,6 +141,7 @@ def build_pose_topdown(config: Dict[str, Any], device: DeviceLike = None, seed: 
     from cvsd_tpu_torch.utils.weights import init_module
 
     dev = resolve_device(device)
+    use_float32_math()  # the pose net runs in float32
     td = (config.get("detector", {}) or {}).get("pose_topdown") or {}
     model = TopDownPoseNet(num_keypoints=int(td.get("num_keypoints", 17)),
                            width=int(td.get("width", 32)),
@@ -168,6 +169,7 @@ def load_pose_topdown_checkpoint(path: str, device: DeviceLike = None) -> TopDow
     from cvsd_tpu_torch.utils.weights import load_flax_variables
 
     dev = resolve_device(device)
+    use_float32_math()
     variables, meta = load_checkpoint(path)
     cfg = ((meta or {}).get("config") or {}).get("pose_topdown") or {}
     model = TopDownPoseNet(num_keypoints=int(cfg.get("num_keypoints", 17)),

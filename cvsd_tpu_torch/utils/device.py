@@ -35,3 +35,18 @@ def torch_dtype(name: Optional[str]) -> torch.dtype:
     if key not in table:
         raise ValueError(f"unsupported dtype {name!r}; expected one of {sorted(table)}")
     return table[key]
+
+
+def use_float32_math() -> None:
+    """Run float32 convolutions and matmuls in float32 on the card.
+
+    PyTorch lets cuDNN (and, in some versions, cuBLAS) compute float32
+    convolutions and matmuls in TF32, whose 10-bit mantissa moves the port's
+    float32 outputs off the JAX package's by far more than float32 rounding
+    (head maps ~1e-3 relative against 5e-5). The flags are process-wide, so
+    the entry points that build or load a float32 model call this once, at
+    build time, not around each forward: a context manager would race with
+    the server's dispatcher threads. A caller that wants TF32 sets the flags
+    back after building."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

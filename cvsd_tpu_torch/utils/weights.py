@@ -6,6 +6,7 @@ The port's modules are named after the flax auto-names (``Backbone_0``,
 ...), so a flax path maps to a torch key mechanically:
 
     params/A/B/Conv_0/kernel       -> A.B.Conv_0.weight        HWIO -> OIHW
+    params/A/Conv_1/kernel (1-D)   -> A.Conv_1.weight          (k, in/g, out) -> (out, in/g, k)
     params/A/Dense_0/kernel        -> A.Dense_0.weight         (in,out) -> (out,in)
     params/A/query/kernel          -> A.query.weight           (d,h,hd) -> (h*hd,d)
     params/A/out/kernel            -> A.out.weight             (h,hd,d) -> (d,h*hd)
@@ -46,6 +47,8 @@ def _convert_leaf(leaf: str, value: np.ndarray, target_shape: torch.Size) -> np.
     if leaf == "kernel":
         if value.ndim == 4:  # conv HWIO -> OIHW
             return value.transpose(3, 2, 0, 1)
+        if value.ndim == 3 and len(target_shape) == 3:  # 1-D conv (k, in/g, out) -> (out, in/g, k)
+            return value.transpose(2, 1, 0)
         if len(target_shape) == 2:  # Dense / DenseGeneral: inputs first, outputs last
             return value.reshape(int(target_shape[1]), -1).T
     if leaf == "bias" and value.ndim > 1 and len(target_shape) == 1:
@@ -121,6 +124,8 @@ def _to_flax_leaf(owner: nn.Module, name: str, leaf: str, value: np.ndarray,
         return "params", "bias", value.reshape(heads, -1) if qkv else value
     if isinstance(owner, nn.Conv2d):  # OIHW -> HWIO
         return "params", "kernel", value.transpose(2, 3, 1, 0)
+    if isinstance(owner, nn.Conv1d):  # (out, in/g, k) -> (k, in/g, out)
+        return "params", "kernel", value.transpose(2, 1, 0)
     if isinstance(owner, nn.Linear):  # (out, in) -> (in, out)
         kernel = value.T
         if qkv:  # (d, h*hd) -> (d, h, hd)
@@ -178,7 +183,7 @@ def init_module(module: nn.Module, seed: int, xavier: bool = False) -> nn.Module
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         if leaf == "bias":
             vals = torch.zeros(p.shape)
-        elif isinstance(owner, (nn.Conv2d, nn.Linear)):
+        elif isinstance(owner, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             fan_in = int(np.prod(p.shape[1:]))
             fan_out = int(p.shape[0]) * int(np.prod(p.shape[2:]))
             if xavier:

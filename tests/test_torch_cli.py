@@ -40,6 +40,7 @@ from cvsd_tpu_torch.eval import evaluate
 from cvsd_tpu_torch.eval.evaluate import load_model
 from cvsd_tpu_torch.eval.streaming_eval import evaluate_streaming
 from cvsd_tpu_torch.utils.metrics import compute_auc_roc, roc_curve
+from torch_testutil import random_flax_variables
 
 cv2 = pytest.importorskip("cv2")
 REPO = Path(__file__).resolve().parent.parent
@@ -51,25 +52,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def random_flax_variables(init_fn, seed):
-    """Flax variables of init_fn's shapes from a seeded numpy generator
-    (jax.eval_shape avoids the CPU compile of the flax init)."""
-    rng = np.random.default_rng(seed)
-
-    def fill(path, sd):
-        key, shape = jax.tree_util.keystr(path), sd.shape
-        if key.endswith("['var']"):
-            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        if key.endswith("['mean']") or key.endswith("['bias']"):
-            return rng.normal(0, 0.05, shape).astype(np.float32)
-        if key.endswith("['scale']"):
-            return rng.uniform(0.8, 1.2, shape).astype(np.float32)
-        fan_in = shape[0] if len(shape) == 3 and "['out']" not in key else int(np.prod(shape[:-1]))
-        return (rng.normal(0, 1, shape) / np.sqrt(fan_in)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
 
 
 # the streaming fixture's sizes (test_torch_streaming.py): img 64, conf 0.0,

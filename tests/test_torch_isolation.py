@@ -1,6 +1,6 @@
 """The port stands alone: no module of cvsd_tpu_torch, and nothing
-chip_smoke.py imports, loads jax, flax or cvsd_tpu, nor msgpack, cv2 or yaml,
-which the card machine lacks; and the entry points' default device (the
+chip_smoke.py imports, loads jax, flax or cvsd_tpu, nor msgpack, cv2, yaml
+or pandas, which the card machine may lack; and the entry points' default device (the
 CUDA card) raises when there is none, with no silent CPU fallback. Checked
 in fresh subprocesses: this test process has JAX loaded by conftest.py."""
 
@@ -35,18 +35,19 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
             # an optional yardstick (torchvision) that is not installed is skipped
             if importlib.util.find_spec(name.split(".")[0]) is not None:
                 importlib.import_module(name)
-        # msgpack, cv2 and yaml are absent on the card machine: the port
-        # imports them (cv2, yaml) only inside the functions that need them
+        # msgpack, cv2, yaml and pandas may be absent on the card machine:
+        # the port imports them (cv2, yaml, pandas) only inside the functions
+        # that need them
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cvsd_tpu",
-                                            "msgpack", "cv2", "yaml"))
+                                            "msgpack", "cv2", "yaml", "pandas"))
         print("BAD", bad)
         n = sum(1 for m in sys.modules if m.startswith("cvsd_tpu_torch."))
         print("PORT_MODULES", n)
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 45
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 50
 
 
 def test_default_device_raises_without_cuda():
@@ -62,7 +63,9 @@ def test_default_device_raises_without_cuda():
         from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
         from cvsd_tpu_torch.eval.evaluate import load_model
         from cvsd_tpu_torch.models.pose_topdown import load_pose_topdown_checkpoint
-        from cvsd_tpu_torch.cli import serve, stream
+        from cvsd_tpu_torch.cli import preprocess, serve, stream, train_tabular
+        from cvsd_tpu_torch.models.xception_time import XceptionTimeClassifier
+        from cvsd_tpu_torch.pipeline.preprocess import preprocess_ucf_crime
         cfg = get_default_config()
         cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
         cpu_model = build_shopformer(cfg, device="cpu")
@@ -80,6 +83,11 @@ def test_default_device_raises_without_cuda():
             "cli.serve": lambda: serve.main(["--checkpoint", "no_such.msgpack"]),
             "cli.stream": lambda: stream.main(["--checkpoint", "no_such.msgpack",
                                                "--videos", "v.mp4"]),
+            # the device is resolved before the list or the CSVs are read
+            "XceptionTimeClassifier": lambda: XceptionTimeClassifier(),
+            "preprocess_ucf_crime": lambda: preprocess_ucf_crime(cfg, "no_such_dir"),
+            "cli.preprocess": lambda: preprocess.main(["--dataset_dir", "no_such_dir"]),
+            "cli.train_tabular": lambda: train_tabular.main(["--csv", "no_such.csv"]),
         }
         for name, fn in calls.items():
             try:
@@ -92,7 +100,7 @@ def test_default_device_raises_without_cuda():
     """)
     assert r.returncode == 0, r.stderr
     assert "FELL_BACK" not in r.stdout, r.stdout
-    assert r.stdout.count("RAISED") == 10, r.stdout
+    assert r.stdout.count("RAISED") == 14, r.stdout
 
 
 def test_nms_cuda_wrapper_refuses_cpu_tensors():

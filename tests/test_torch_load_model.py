@@ -26,6 +26,7 @@ from cvsd_tpu_torch.models.detector import build_detector
 from cvsd_tpu_torch.models.pose_topdown import load_pose_topdown_checkpoint
 from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict
+from torch_testutil import random_flax_variables
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -34,25 +35,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def random_flax_variables(init_fn, seed):
-    """Flax variables of init_fn's shapes from a seeded numpy generator
-    (jax.eval_shape avoids the CPU compile of the flax init)."""
-    rng = np.random.default_rng(seed)
-
-    def fill(path, sd):
-        key, shape = jax.tree_util.keystr(path), sd.shape
-        if key.endswith("['var']"):
-            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        if key.endswith("['mean']") or key.endswith("['bias']"):
-            return rng.normal(0, 0.05, shape).astype(np.float32)
-        if key.endswith("['scale']"):
-            return rng.uniform(0.8, 1.2, shape).astype(np.float32)
-        fan_in = shape[0] if len(shape) == 3 and "['out']" not in key else int(np.prod(shape[:-1]))
-        return (rng.normal(0, 1, shape) / np.sqrt(fan_in)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
 
 
 @pytest.fixture(scope="module")

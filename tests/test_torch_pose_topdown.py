@@ -15,6 +15,7 @@ from cvsd_tpu.models.pose_topdown import soft_argmax as soft_argmax_jax
 from cvsd_tpu_torch.models.pose_topdown import (TopDownPoseNet, build_pose_topdown,
                                                 crop_and_resize, pose_from_boxes, soft_argmax)
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
+from torch_testutil import random_flax_variables
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -23,23 +24,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def random_flax_variables(init_fn, seed):
-    """Flax variables of init_fn's shapes from a seeded numpy generator."""
-    rng = np.random.default_rng(seed)
-
-    def fill(path, sd):
-        key, shape = jax.tree_util.keystr(path), sd.shape
-        if key.endswith("['var']"):
-            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        if key.endswith("['mean']") or key.endswith("['bias']"):
-            return rng.normal(0, 0.05, shape).astype(np.float32)
-        if key.endswith("['scale']"):
-            return rng.uniform(0.8, 1.2, shape).astype(np.float32)
-        return (rng.normal(0, 1, shape) / np.sqrt(int(np.prod(shape[:-1])))).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
 
 
 def _nets(crop, width, seed=0):

@@ -22,6 +22,7 @@ from cvsd_tpu_torch.models.detector import (PersonDetector, build_detector, deco
                                             make_detect_fn)
 from cvsd_tpu_torch.ops.nms import batched_nms
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
+from torch_testutil import random_flax_variables
 
 S = 128
 VARIANTS = {"v8dfl": ("v8dfl", 0), "v8dfl_pose": ("v8dfl", 17), "anchor_free_pose": ("anchor_free", 17)}
@@ -33,24 +34,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def random_flax_variables(init_fn, seed):
-    """Flax variables of init_fn's shapes from a seeded numpy generator
-    (jax.eval_shape avoids the CPU compile of the flax init)."""
-    rng = np.random.default_rng(seed)
-
-    def fill(path, sd):
-        key, shape = jax.tree_util.keystr(path), sd.shape
-        if key.endswith("['var']"):
-            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        if key.endswith("['mean']") or key.endswith("['bias']"):
-            return rng.normal(0, 0.05, shape).astype(np.float32)
-        if key.endswith("['scale']"):
-            return rng.uniform(0.8, 1.2, shape).astype(np.float32)
-        return (rng.normal(0, 1, shape) / np.sqrt(int(np.prod(shape[:-1])))).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
 
 
 _PAIRS = {}
