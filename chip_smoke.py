@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch/CUDA port (cvsd_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 2.5 minutes on an H100
+    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 4 minutes on an H100
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
@@ -56,6 +56,19 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      then ``python -m cvsd_tpu_torch.cli.preprocess`` on the fixture and
      ``python -m cvsd_tpu_torch.cli.train_tabular`` on synthetic tracks, as
      subprocesses on their default device (the card)
+  10. train: (a) configs/paper.yaml's model and training (d_model 144,
+     batch 32 x accum 4, Adam 5e-5, exponential, clip 1.0, scan_epoch, its
+     augmentation) on 8,192 synthetic windows, 3 + 3 epochs: steps/s, epoch
+     seconds, scoring windows/s, peak memory; the stage-1 loss falls, the
+     four stage checkpoints exist and load_model(stage2_best) scores the
+     test set bit-equal to the trainer; (b) the JAX package's learning
+     regression (hidden 16, 256 / 128 windows, 8 + 8 epochs): best AUC >
+     0.8; (c) one stage-1 and one stage-2 step card vs CPU in float32 at
+     full width (and with TF32 set after the build, which the gradient limit
+     must fail); (d) ``python -m cvsd_tpu_torch.cli.train`` (paper.yaml,
+     --profile), ``cli.evaluate`` and ``cli.inference`` as subprocesses on
+     their default device (the card). Training launches no NMS kernel: the
+     counts are set to 0 before (a) and held at 0 after it
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
      then the result line
 
@@ -1185,6 +1198,314 @@ def drive_clis(tmp: str, fixture_root: str, has_cv2: bool, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: Shopformer training
+
+# configs/paper.yaml over the defaults (the paper's width and training
+# settings), as dotted overrides: the run reads the file where yaml is
+# installed and holds these to it, and applies them where it is not
+PAPER_SETS = (
+    "model.in_channels=2", "model.num_keypoints=18", "model.seq_len=12", "model.num_tokens=2",
+    "model.hidden_channels=64", "model.latent_channels=8", "model.gcae_layers=4",
+    "model.layout=coco_with_neck", "model.num_heads=2", "model.num_encoder_layers=2",
+    "model.num_decoder_layers=2", "model.dim_feedforward=64", "model.dropout=0.1",
+    "model.variant=v2", "training.optimizer=adam", "training.lr=5e-05",
+    "training.weight_decay=0.0", "training.batch_size=32", "training.grad_accum_steps=4",
+    "training.grad_clip=1.0", "training.scheduler=exponential",
+    "training.scheduler_params.gamma=0.95", "training.early_stopping.enabled=true",
+    "training.early_stopping.patience=20", "training.early_stopping.min_delta=0.001",
+    "training.checkpoint_every_n_epochs=10", "training.scan_epoch=true", "data.seq_len=12",
+    "data.stride=6", "data.max_gap=5", "data.batch_size=32", "data.augment.enabled=true",
+    "data.augment.flip_prob=0.3", "data.augment.jitter_std=0.01",
+    "data.augment.scale_range=[0.95, 1.05]", "data.augment.rotation_range=[-5.0, 5.0]",
+    "data.augment.temporal_dropout_prob=0.05", "data.augment.keypoint_dropout_prob=0.0",
+)
+TRAIN_WINDOWS = 8192  # synthetic training windows at the paper's width (test: a quarter)
+TRAIN_EPOCHS = 3  # per stage, for the paper's 200 + 200
+# One stage-1 and one stage-2 step, float32 card vs CPU on one batch from the
+# same weights, each limit ~10x its float32 reading on an H100 (PERF.md gives
+# the readings). The loss (relative) and, after the stage-1 step, the
+# BatchNorm statistics (against each tensor's largest) must fail TF32.
+# Stage 2's gradients are held per tensor against its largest entry, and
+# that limit must fail TF32 too. Stage 1's are not: flax's train-mode
+# BatchNorm takes the variance as E[x^2] - E[x]^2, which loses digits to
+# cancellation, so some of its float32 gradients are far from their float64
+# values on any device (the run prints the CPU's float32 against float64 on
+# the same step); they are held against the largest gradient anywhere. Parameters are compared where the gradient is at least 1e-3 of
+# the largest (elsewhere Adam's first step, lr * g / (|g| + 1e-8), takes its
+# sign from rounding); after stage 1 only to Adam's bound of one step, as
+# the ill-conditioned gradients flip signs there too.
+TOL_TRAIN_LOSS_F32 = 2e-6
+TOL_TRAIN_STATS_F32 = 7e-5
+TOL_TRAIN_GRAD_F32 = 3e-4  # stage 2, per tensor
+TOL_TRAIN_GRAD1_F32 = 3e-2  # stage 1, against the largest gradient anywhere
+TOL_TRAIN_PARAM_F32 = 2e-7  # stage 2
+
+
+def paper_config(overrides=()):
+    """configs/paper.yaml (or PAPER_SETS over the defaults without yaml), the
+    synthetic dataset, then ``overrides``."""
+    from cvsd_tpu_torch.config import apply_overrides, get_default_config, load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    from_sets = apply_overrides(get_default_config(), list(PAPER_SETS))
+    cfg = from_sets
+    if importlib.util.find_spec("yaml") is not None:
+        cfg = load_config(os.path.join(root, "configs", "paper.yaml"))
+        for item in PAPER_SETS:
+            keys = item.split("=", 1)[0].split(".")
+            a, b = cfg, from_sets
+            for k in keys:
+                a, b = a.get(k), b.get(k)
+            if a != b:
+                fail(f"PAPER_SETS has {item}, configs/paper.yaml {'.'.join(keys)}={a!r}")
+    return apply_overrides(cfg, ["data.dataset=synthetic", *overrides])
+
+
+def _flat(module, grads: bool = False) -> dict:
+    out = {}
+    for n, p in module.named_parameters():
+        t = p.grad if grads else p
+        out[n] = (t if t is not None else torch.zeros_like(p)).detach().cpu().double()
+    return out
+
+
+def train_step_gap(cfg, init: dict, batch: dict, stage: int, dev, cpu, tf32: bool) -> dict:
+    """One trainer step of ``stage`` on ``batch`` from ``init``, card vs CPU
+    (float32; with ``tf32`` the card's flags are set after its build): the
+    loss, the gradients (a separate forward and backward on a copy), the
+    updated parameters and the BatchNorm statistics."""
+    import copy
+
+    from cvsd_tpu_torch.train.loop import Trainer
+    from cvsd_tpu_torch.utils.weights import load_flax_variables
+
+    res = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        tr = Trainer(cfg, verbose=False, device=d).setup()
+        load_flax_variables(tr.model, init)
+        probe = copy.deepcopy(tr.model)
+        poses = torch.from_numpy(batch["poses"]).to(d)
+        mask = torch.from_numpy(batch["mask"]).to(d)
+        set_tf32(tf32 and name == "card")
+        try:
+            fn = probe.compute_gcae_loss if stage == 1 else probe.compute_transformer_loss
+            fn(poses, train=True, mask=mask).backward()
+            loss = float(tr.train_step(stage, tr.make_optimizer(stage), poses, mask, 100003))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            set_tf32(False)
+        stats = {n: b.detach().cpu().double() for n, b in tr.model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+        res[name] = (loss, _flat(probe, grads=True), _flat(tr.model), stats)
+        if name == "cpu":  # the same gradients in float64: float32's own error
+            twin = copy.deepcopy(probe).double()
+            twin.zero_grad(set_to_none=True)
+            fn = twin.compute_gcae_loss if stage == 1 else twin.compute_transformer_loss
+            fn(poses.double(), train=True, mask=mask.double()).backward()
+            res["f64"] = _flat(twin, grads=True)
+    (l_g, g_g, p_g, s_g), (l_c, g_c, p_c, s_c) = res["card"], res["cpu"]
+    gmax = max(float(g.abs().max()) for g in g_c.values())
+    grad = grad_global = sure = 0.0
+    for k, g in g_c.items():
+        top = float(g.abs().max())
+        gap = float((g_g[k] - g).abs().max())
+        grad_global = max(grad_global, gap / gmax)
+        # a gradient that is rounding noise on the CPU (the biases in front of
+        # a train-mode BatchNorm, attention's key biases) is read against the
+        # largest gradient anywhere
+        grad = max(grad, gap / (top if top >= 1e-6 * gmax else gmax))
+        big = g.abs() >= 1e-3 * gmax
+        if bool(big.any()):
+            sure = max(sure, float((p_g[k] - p_c[k])[big].abs().max()))
+    g64 = res["f64"]
+    f64 = max(float((g - g64[k]).abs().max()) / max(float(g64[k].abs().max()), 1e-6 * gmax)
+              for k, g in g_c.items())
+    noise = max(float((p_g[k] - p).abs().max()) for k, p in p_c.items())
+    stats = max((float((s_g[k] - s).abs().max() / max(float(s.abs().max()), 1e-12))
+                 for k, s in s_c.items()), default=0.0)
+    return {"loss": abs(l_g - l_c) / abs(l_c), "grad": grad, "grad_global": grad_global,
+            "cpu_f32_vs_f64_grad": f64,
+            "param": sure, "param_any": noise, "batch_stats": stats}
+
+
+def drive_train(tmp: str, dev, cpu, nms_mod) -> dict:
+    """10: Shopformer training on the card. (a) configs/paper.yaml's model
+    and training at full width on TRAIN_WINDOWS synthetic windows, 3 + 3
+    epochs: micro- and optimizer steps/s per stage, epoch seconds, test-set
+    scoring windows/s, peak memory; the stage-1 loss falls, the four stage
+    checkpoints exist, load_model(stage2_best) scores the test set bit-equal
+    to the trainer. (b) The JAX package's learning regression settings:
+    best AUC > 0.8. (c) One stage-1 and one stage-2 step card vs CPU in
+    float32 (and with TF32 set after the build, which the gradient limit
+    must fail). (d) cli.train (with --profile), cli.evaluate and
+    cli.inference as subprocesses on their default device."""
+    from cvsd_tpu_torch.eval.evaluate import load_model
+    from cvsd_tpu_torch.train.loop import Trainer
+    from cvsd_tpu_torch.utils.weights import state_dict_to_flax
+
+    out = {}
+    # -- (a) full width, the paper's settings --------------------------------
+    ckpt_dir = os.path.join(tmp, "paper")
+    cfg = paper_config([f"data.synthetic.num_train={TRAIN_WINDOWS}",
+                        f"data.synthetic.num_test={TRAIN_WINDOWS // 4}",
+                        f"training.stage1_epochs={TRAIN_EPOCHS}",
+                        f"training.stage2_epochs={TRAIN_EPOCHS}",
+                        f"experiment.checkpoint_dir={ckpt_dir}"])
+    reset_launches(nms_mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, device=dev).setup()
+    art = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    nms_counts = launches(nms_mod)
+    micro = tr.datamodule.steps_per_epoch()
+    accum = int(cfg["training"]["grad_accum_steps"])
+    stages = {}
+    for st in ("stage1", "stage2"):
+        secs = [r["seconds"] for r in art["history"][st]]
+        steady = secs[1:] or secs
+        stages[st] = {"epoch_seconds": secs, "loss": [r["loss"] for r in art["history"][st]],
+                      "micro_steps_per_s": micro * len(steady) / sum(steady),
+                      "optimizer_steps_per_s": micro // accum * len(steady) / sum(steady)}
+    stages["stage2"]["auc_roc"] = [r.get("auc_roc") for r in art["history"]["stage2"]]
+    labels, scores, _ = tr.score_test_set()  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    labels, scores, _ = tr.score_test_set()
+    score_rate = len(scores) / (time.perf_counter() - t1)
+    loss1 = stages["stage1"]["loss"]
+    if not loss1[-1] < loss1[0]:
+        fail(f"full-width stage 1 did not learn: losses {loss1}")
+    names = ("stage1_best", "stage1_final", "stage2_best", "stage2_final")
+    missing = [n for n in names if not os.path.exists(os.path.join(ckpt_dir, f"{n}.msgpack"))]
+    if missing:
+        fail(f"full-width training wrote no {missing}")
+    loaded = load_model(os.path.join(ckpt_dir, "stage2_best.msgpack"), device=dev)
+    if not np.array_equal(loaded.score(tr.datamodule.test_dataset.poses), scores):
+        fail("load_model(stage2_best) does not score the test set bit-equal to the trainer")
+    if any(nms_counts.values()):
+        fail(f"training launched NMS kernels: {nms_counts}")
+    out["paper"] = {"windows": TRAIN_WINDOWS, "test_windows": len(scores),
+                    "epochs": TRAIN_EPOCHS, "micro_steps_per_epoch": micro,
+                    "optimizer_steps_per_epoch": micro // accum, "stages": stages,
+                    "fit_seconds": fit_s, "score_windows_per_s": score_rate,
+                    "peak_gb": peak_gb, "best_auc": art["best_auc"],
+                    "best_epoch": art["best_epoch"], "nms_launches": nms_counts}
+    log(f"[train] paper.yaml model (d_model 144, hidden 64, 2 heads, 2+2 layers) on "
+        f"{TRAIN_WINDOWS} synthetic windows, batch 32 x accum 4, {TRAIN_EPOCHS}+{TRAIN_EPOCHS} "
+        f"epochs in {fit_s:.1f} s: stage 1 {stages['stage1']['micro_steps_per_s']:.1f} "
+        f"micro-steps/s ({stages['stage1']['optimizer_steps_per_s']:.1f} optimizer steps/s), "
+        f"epochs {[round(x, 2) for x in stages['stage1']['epoch_seconds']]} s, loss "
+        f"{[round(x, 5) for x in loss1]}; stage 2 {stages['stage2']['micro_steps_per_s']:.1f} "
+        f"micro-steps/s ({stages['stage2']['optimizer_steps_per_s']:.1f}), epochs "
+        f"{[round(x, 2) for x in stages['stage2']['epoch_seconds']]} s, AUC "
+        f"{[round(x, 4) for x in stages['stage2']['auc_roc'] if x is not None]}; scoring "
+        f"{score_rate:.0f} windows/s on {len(scores)}; peak {peak_gb:.2f} GB; "
+        f"load_model(stage2_best) scores bit-equal; NMS launches {nms_counts}")
+
+    # -- (b) it learns: the JAX package's learning regression ------------------
+    from cvsd_tpu_torch.config import apply_overrides, get_default_config
+
+    cfg_b = apply_overrides(get_default_config(), [
+        "data.dataset=synthetic", "data.synthetic.num_train=256", "data.synthetic.num_test=128",
+        "data.batch_size=64", "model.hidden_channels=16", "training.stage1_epochs=8",
+        "training.stage2_epochs=8", "training.lr=0.001",
+        f"experiment.checkpoint_dir={os.path.join(tmp, 'learn')}"])
+    t0 = time.perf_counter()
+    art_b = Trainer(cfg_b, verbose=False, device=dev).setup().fit()
+    out["learns"] = {"best_auc": art_b["best_auc"], "best_epoch": art_b["best_epoch"],
+                     "seconds": time.perf_counter() - t0}
+    log(f"[train] learning regression (hidden 16, 256/128 windows, batch 64, lr 1e-3, 8+8 "
+        f"epochs): best AUC {art_b['best_auc']:.4f} at epoch {art_b['best_epoch']} in "
+        f"{out['learns']['seconds']:.1f} s")
+    if not art_b["best_auc"] > 0.8:
+        fail(f"the learning regression's best AUC {art_b['best_auc']:.4f} is not above 0.8")
+
+    # -- (c) one step card vs CPU at full width -------------------------------------
+    cfg_c = paper_config(["data.augment.enabled=false", "model.dropout=0.0",
+                          "data.synthetic.num_train=64", "data.synthetic.num_test=32",
+                          "training.grad_accum_steps=1",
+                          f"experiment.checkpoint_dir={os.path.join(tmp, 'step')}"])
+    init = state_dict_to_flax(Trainer(cfg_c, verbose=False, device=cpu).setup().model)
+    from cvsd_tpu_torch.data.datamodule import PoseLiftDataModule
+
+    batch = next(PoseLiftDataModule(cfg_c, verbose=False).setup().train_batches(epoch=1))
+    gaps = {}
+    for stage in (1, 2):
+        gaps[f"stage{stage}"] = train_step_gap(cfg_c, init, batch, stage, dev, cpu, False)
+        gaps[f"stage{stage}_tf32"] = train_step_gap(cfg_c, init, batch, stage, dev, cpu, True)
+    out["step_gap"] = gaps
+    lr = float(cfg_c["training"]["lr"])
+    for key, g in gaps.items():
+        log(f"[train] one {key} step card vs CPU (batch 32, full width): loss {g['loss']:.2e}, "
+            f"gradients {g['grad']:.2e} of each tensor's largest, {g['grad_global']:.2e} of "
+            f"the largest anywhere (the CPU's float32 against float64: "
+            f"{g['cpu_f32_vs_f64_grad']:.2e} of each tensor's largest), parameters "
+            f"(|g| >= 1e-3 max) {g['param']:.2e} (any "
+            f"{g['param_any']:.2e}, lr {lr:.1e}), BatchNorm statistics {g['batch_stats']:.2e}")
+    g1, t1, g2, t2 = (gaps["stage1"], gaps["stage1_tf32"], gaps["stage2"], gaps["stage2_tf32"])
+    if (g1["loss"] > TOL_TRAIN_LOSS_F32 or g1["batch_stats"] > TOL_TRAIN_STATS_F32
+            or g1["grad_global"] > TOL_TRAIN_GRAD1_F32 or g1["param_any"] > 2 * lr * 1.0001):
+        fail(f"stage-1 step card vs CPU f32 outside its limits: {g1}")
+    if (g2["loss"] > TOL_TRAIN_LOSS_F32 or g2["grad"] > TOL_TRAIN_GRAD_F32
+            or g2["param"] > TOL_TRAIN_PARAM_F32):
+        fail(f"stage-2 step card vs CPU f32 outside its limits: {g2}")
+    if not (t1["loss"] > TOL_TRAIN_LOSS_F32 and t1["batch_stats"] > TOL_TRAIN_STATS_F32
+            and t2["loss"] > TOL_TRAIN_LOSS_F32 and t2["grad"] > TOL_TRAIN_GRAD_F32):
+        fail(f"a training step limit passes TF32: stage 1 {t1}, stage 2 {t2}")
+
+    # -- (d) the CLIs on their default device --------------------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    if importlib.util.find_spec("yaml") is not None:
+        paper_args = ["--config", "configs/paper.yaml"]
+    else:
+        paper_args = [a for item in PAPER_SETS for a in ("--set", item)]
+    run_dir, prof = os.path.join(tmp, "cli_train"), os.path.join(tmp, "cli_profile")
+    cmds = {
+        "train": cli_command("train", *paper_args, "--use_synthetic",
+                             "--set", "data.synthetic.num_train=512",
+                             "--set", "data.synthetic.num_test=256",
+                             "--set", "training.stage1_epochs=1",
+                             "--set", "training.stage2_epochs=1",
+                             "--output_dir", run_dir, "--profile", prof),
+        "evaluate": cli_command("evaluate", "--checkpoint",
+                                os.path.join(run_dir, "stage2_best.msgpack"),
+                                "--output_dir", os.path.join(tmp, "cli_eval")),
+        "inference": cli_command("inference", "--checkpoint",
+                                 os.path.join(run_dir, "stage2_best.msgpack"),
+                                 "--output", os.path.join(tmp, "cli_inference.json")),
+    }
+    files = {"train": os.path.join(run_dir, "training_results.json"),
+             "evaluate": os.path.join(tmp, "cli_eval", "metrics.json"),
+             "inference": os.path.join(tmp, "cli_inference.json")}
+    clis = {}
+    for name, cmd in cmds.items():
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        clis[f"{name}_s"] = time.perf_counter() - t0
+        if r.returncode != 0 or not os.path.exists(files[name]):
+            fail(f"cli.{name} exited {r.returncode}: {r.stderr[-2000:]}")
+        with open(files[name]) as f:
+            json.load(f)
+    trace = os.path.join(prof, "trace.json")
+    if not os.path.exists(trace):
+        fail("cli.train --profile wrote no trace.json")
+    clis["trace_bytes"] = os.path.getsize(trace)
+    with open(files["inference"]) as f:
+        clis["inference_auc"] = json.load(f)["metrics"]["auc_roc"]
+    out["clis"] = clis
+    log(f"[train] cli.train on paper.yaml ({'--config' if paper_args[0] == '--config' else '--set'}, "
+        f"512 windows, 1+1 epochs, --profile) {clis['train_s']:.1f} s, trace "
+        f"{clis['trace_bytes']} B; cli.evaluate {clis['evaluate_s']:.1f} s; cli.inference "
+        f"{clis['inference_s']:.1f} s (AUC {clis['inference_auc']:.4f}); each on the card")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1840,11 +2161,21 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # -- 10. Shopformer training ---------------------------------------------
+    t10 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_train_")
+    try:
+        train = drive_train(tmp, dev, cpu, nms_mod)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    train["seconds"] = time.perf_counter() - t10
+    log(f"[train] phase 10 in {train['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
                       "fixture_slice2": fixture2, "serve": serve, "preprocess": pre,
-                      "tabular": tabular, "pipeline_a_clis": clis,
+                      "tabular": tabular, "pipeline_a_clis": clis, "train": train,
                       "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole

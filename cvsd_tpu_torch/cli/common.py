@@ -25,12 +25,17 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card, an error without one; "
                         "'cpu' runs on the host)")
+    p.add_argument("--use_synthetic", action="store_true",
+                   help="use the synthetic pose dataset (data.dataset=synthetic)")
 
 
 def resolve_config(args: argparse.Namespace) -> Dict[str, Any]:
-    """``--config`` (or the defaults) with the ``--set`` overrides, validated."""
+    """``--config`` (or the defaults) with the ``--set`` overrides and
+    ``--use_synthetic``, validated."""
     cfg = load_config(args.config) if args.config else get_default_config()
     cfg = apply_overrides(cfg, args.overrides)
+    if getattr(args, "use_synthetic", False):
+        cfg["data"]["dataset"] = "synthetic"
     validate_config(cfg)
     return cfg
 

@@ -4,9 +4,6 @@ The port's own copy of ``cvsd_tpu/config/config.py`` (same defaults, same
 keys, so one YAML file configures both packages); ``yaml`` is imported
 lazily.
 
-The reference package also saves configs for its trainers; that waits for
-the training slice.
-
 Design: a single nested dict (the "config tree") is the source of truth,
 threaded through model/data/trainer factories and embedded in every
 checkpoint. ``Config`` is a light attribute-access view over that dict.
@@ -32,6 +29,16 @@ class Config(dict):
 
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
+
+    def to_dict(self) -> Dict[str, Any]:
+        def conv(x):
+            if isinstance(x, dict):
+                return {k: conv(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return [conv(v) for v in x]
+            return x
+
+        return conv(self)
 
 
 def get_default_config() -> Config:
@@ -169,6 +176,20 @@ def load_config(path: str) -> Config:
         if os.path.exists(resolved):
             cfg["data"]["data_dir"] = resolved
     return cfg
+
+
+def save_config(cfg: Dict[str, Any], path: str) -> None:
+    """Persist the effective config next to checkpoints: JSON for a ``.json``
+    path, else YAML (``yaml`` imported only then)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    cfg = Config(cfg).to_dict()
+    with open(path, "w") as f:
+        if path.endswith(".json"):
+            json.dump(cfg, f, indent=2)
+        else:
+            import yaml
+
+            yaml.safe_dump(cfg, f, sort_keys=False)
 
 
 def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Config:

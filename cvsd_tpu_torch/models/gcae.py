@@ -1,22 +1,39 @@
-"""GCAE encoder — spatio-temporal graph-convolutional pose tokenizer
-(PyTorch port of the scoring half of ``cvsd_tpu/models/gcae.py``).
+"""GCAE — spatio-temporal graph-convolutional autoencoder, the pose tokenizer
+(PyTorch port of ``cvsd_tpu/models/gcae.py``, the ``"tpu"`` decoder).
 
 - GraphConvolution: A·X·W with a constant normalized skeleton adjacency
 - TemporalConvolution: k=9 conv along time, stride s, pad 4, + BatchNorm
-- STGCNBlock: gcn -> ReLU -> tcn -> +residual -> ReLU (1x1 conv+BN residual
-  when the shape changes)
+- STGCNBlock: gcn -> ReLU -> tcn -> dropout -> +residual -> ReLU (1x1
+  conv+BN residual when the shape changes)
 - GCAEEncoder: input BatchNorm over the (V, C) feature pair, ST-GCN blocks,
   adaptive-average pool to ``num_tokens``, tokens (B, num_tokens, V*latent)
+- GCAEDecoder: Dense expansion + ReLU, ``ceil(log2(seq_len/num_tokens))``
+  x2 ConvTranspose + BatchNorm + ReLU along time, a resize to ``seq_len``,
+  a k=9 conv back to ``in_channels``
 
-Poses are (B, T, V, C) at the public functions; the temporal convolutions run
-on (B, C, T, V). BatchNorm eps is flax's default 1e-5. The decoder is not on
-the scoring path and is not ported yet (ROADMAP.md).
+Poses are (B, T, V, C) at the public functions; the convolutions run on
+(B, C, T, V). Every BatchNorm is ``models/layers.py::FlaxBatchNorm`` (flax's
+train-mode statistics, eps 1e-5).
+
+Two parts are not PyTorch's stock behaviour, and the tests hold both to JAX:
+  - flax's ``ConvTranspose`` does not flip its kernel, and its "SAME"
+    padding for k 4, s 2 is lax's (2, 2): ``nn.ConvTranspose2d`` with
+    padding 1 computes the same with the kernel flipped along time, which
+    the weight bridge (``utils/weights.py``) does both ways;
+  - ``jax.image.resize(..., "linear")`` antialiases when it shrinks (the
+    default T 12 / 2 tokens decodes 2 -> 16 and resizes 16 -> 12). Like
+    jax, the port resizes by a constant weight matrix along time
+    (``linear_resize_matrix``): ``F.interpolate``'s antialiased bilinear
+    computes the same, but its CUDA backward adds with atomics, so training
+    would not repeat bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -26,8 +43,7 @@ from cvsd_tpu_torch.models.graph import (
     compute_strides,
     normalized_skeleton_adjacency,
 )
-
-_BN_EPS = 1e-5  # flax nn.BatchNorm default
+from cvsd_tpu_torch.models.layers import DropoutRNG, FlaxBatchNorm, dropout
 
 
 class GraphConvolution(nn.Module):
@@ -49,49 +65,35 @@ class TemporalConvolution(nn.Module):
         super().__init__()
         pad = (kernel_size - 1) // 2
         self.Conv_0 = nn.Conv2d(in_channels, out_channels, (kernel_size, 1), (stride, 1), (pad, 0))
-        self.BatchNorm_0 = nn.BatchNorm2d(out_channels, eps=_BN_EPS)
+        self.BatchNorm_0 = FlaxBatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.BatchNorm_0(self.Conv_0(x))
 
 
 class STGCNBlock(nn.Module):
-    """gcn -> ReLU -> tcn -> (+ residual) -> ReLU, on (B, T, V, C)."""
+    """gcn -> ReLU -> tcn -> dropout -> (+ residual) -> ReLU, on (B, T, V, C)."""
 
-    def __init__(self, in_channels: int, out_channels: int, adj: torch.Tensor, stride: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, adj: torch.Tensor, stride: int = 1,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.GraphConvolution_0 = GraphConvolution(in_channels, out_channels, adj)
         self.TemporalConvolution_0 = TemporalConvolution(out_channels, out_channels, stride)
         self.project = not (in_channels == out_channels and stride == 1)
         if self.project:
             self.Conv_0 = nn.Conv2d(in_channels, out_channels, 1, (stride, 1))
-            self.BatchNorm_0 = nn.BatchNorm2d(out_channels, eps=_BN_EPS)
+            self.BatchNorm_0 = FlaxBatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         y = F.relu(self.GraphConvolution_0(x))
         y = self.TemporalConvolution_0(y.permute(0, 3, 1, 2))  # (B, C, T, V)
+        y = dropout(y, self.dropout, self.training, rng)
         if self.project:
             res = self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)))
         else:
             res = x.permute(0, 3, 1, 2)
         return F.relu(y + res).permute(0, 2, 3, 1)
-
-
-class FeatureBatchNorm(nn.Module):
-    """Inference BatchNorm over the trailing (V, C) feature pair (flax
-    ``BatchNorm(axis=(-2, -1))``): params and statistics are (V, C)."""
-
-    def __init__(self, shape: Sequence[int], eps: float = _BN_EPS):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(*shape))
-        self.bias = nn.Parameter(torch.zeros(*shape))
-        self.register_buffer("running_mean", torch.zeros(*shape))
-        self.register_buffer("running_var", torch.ones(*shape))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
 
 
 class GCAEEncoder(nn.Module):
@@ -100,20 +102,21 @@ class GCAEEncoder(nn.Module):
     def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
                  num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
                  num_layers: int = 4, layout: str = "coco_with_neck",
-                 strides_override: Optional[Sequence[int]] = None):
+                 strides_override: Optional[Sequence[int]] = None, dropout: float = 0.0):
         super().__init__()
         self.latent_channels = latent_channels
         self.num_tokens = num_tokens
         self.num_layers = num_layers
         adj = torch.from_numpy(normalized_skeleton_adjacency(num_keypoints, layout))
-        self.BatchNorm_0 = FeatureBatchNorm((num_keypoints, in_channels))
+        # over the (V, C) feature pair of (B, T, V, C): flax BatchNorm(axis=(-2, -1))
+        self.BatchNorm_0 = FlaxBatchNorm((num_keypoints, in_channels), feature_dims=(2, 3))
         channels = [in_channels] + [hidden_channels] * (num_layers - 1) + [latent_channels]
         strides = (tuple(strides_override) if strides_override is not None
                    else compute_strides(seq_len, num_tokens, num_layers))
         t = seq_len
         for i in range(num_layers):
             self.add_module(f"STGCNBlock_{i}",
-                            STGCNBlock(channels[i], channels[i + 1], adj, strides[i]))
+                            STGCNBlock(channels[i], channels[i + 1], adj, strides[i], dropout))
             t = (t + 8 - 9) // strides[i] + 1
         self.pool = t != num_tokens
         if self.pool:
@@ -121,22 +124,98 @@ class GCAEEncoder(nn.Module):
                 "pool_matrix", torch.from_numpy(adaptive_pool_matrix(t, num_tokens)),
                 persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         B, T, V, C = x.shape
         x = self.BatchNorm_0(x)
         for i in range(self.num_layers):
-            x = getattr(self, f"STGCNBlock_{i}")(x)
+            x = getattr(self, f"STGCNBlock_{i}")(x, rng)
         if self.pool:
             x = torch.einsum("ot,btvc->bovc", self.pool_matrix, x)
         return x.reshape(B, x.shape[1], V * self.latent_channels)
 
 
-class GCAE(nn.Module):
-    """The GCAE's encoder (the tokenizer the anomaly score needs)."""
+def num_upsample_layers(seq_len: int, num_tokens: int) -> int:
+    """x2 layers until the token axis meets or passes ``seq_len``."""
+    if seq_len <= num_tokens:
+        return 0
+    return max(0, math.ceil(math.log2(seq_len / num_tokens)))
 
-    def __init__(self, **encoder_kwargs):
+
+def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) float32 weights of ``jax.image.resize(...,
+    "linear")`` along one axis (its ``compute_weight_mat`` with the triangle
+    kernel, widened by in/out when it shrinks: the antialiasing)."""
+    scale = out_size / in_size
+    kernel_scale = max(1.0 / scale, 1.0)
+    sample = (np.arange(out_size, dtype=np.float64) + 0.5) / scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    w = np.where(((sample >= -0.5) & (sample <= in_size - 0.5))[None, :], w, 0.0)
+    return np.ascontiguousarray(w.T, dtype=np.float32)
+
+
+class GCAEDecoder(nn.Module):
+    """Tokens (B, num_tokens, V*latent) -> poses (B, seq_len, V, in_channels)."""
+
+    def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
+                 num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2):
         super().__init__()
-        self.encoder = GCAEEncoder(**encoder_kwargs)
+        self.num_keypoints = num_keypoints
+        self.hidden_channels = hidden_channels
+        self.seq_len = seq_len
+        self.n_up = num_upsample_layers(seq_len, num_tokens)
+        H = hidden_channels
+        self.Dense_0 = nn.Linear(latent_channels * num_keypoints, num_keypoints * H)
+        for i in range(self.n_up):
+            # flax ConvTranspose(k (4, 1), s (2, 1), "SAME") == this with the
+            # kernel flipped along time (the bridge flips it)
+            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(H, H, (4, 1), (2, 1), (1, 0)))
+            self.add_module(f"BatchNorm_{i}", FlaxBatchNorm(H))
+        t_up = num_tokens * 2 ** self.n_up
+        self.resize = t_up != seq_len
+        if self.resize:
+            self.register_buffer("resize_matrix",
+                                 torch.from_numpy(linear_resize_matrix(t_up, seq_len)),
+                                 persistent=False)
+        self.Conv_0 = nn.Conv2d(H, in_channels, (9, 1), padding=(4, 0))
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x)
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, n = tokens.shape[:2]
+        V, H = self.num_keypoints, self.hidden_channels
+        x = F.relu(self.Dense_0(tokens)).reshape(B, n, V, H).permute(0, 3, 1, 2)  # (B, H, n, V)
+        for i in range(self.n_up):
+            x = F.relu(getattr(self, f"BatchNorm_{i}")(getattr(self, f"ConvTranspose_{i}")(x)))
+        if self.resize:  # jax.image.resize "linear" along time; V stays
+            x = torch.einsum("ot,bhtv->bhov", self.resize_matrix, x)
+        return self.Conv_0(x).permute(0, 2, 3, 1)
+
+
+class GCAE(nn.Module):
+    """Graph-conv autoencoder: encode -> tokens, decode -> reconstruction."""
+
+    def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
+                 num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
+                 num_layers: int = 4, layout: str = "coco_with_neck",
+                 strides_override: Optional[Sequence[int]] = None, dropout: float = 0.0):
+        super().__init__()
+        kw = dict(in_channels=in_channels, hidden_channels=hidden_channels,
+                  latent_channels=latent_channels, num_keypoints=num_keypoints,
+                  seq_len=seq_len, num_tokens=num_tokens)
+        self.encoder = GCAEEncoder(num_layers=num_layers, layout=layout,
+                                   strides_override=strides_override, dropout=dropout, **kw)
+        self.decoder = GCAEDecoder(**kw)
+
+    def encode(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        return self.encoder(x, rng)
+
+    def decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.decoder(tokens)
+
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(reconstruction, tokens)."""
+        tokens = self.encoder(x, rng)
+        return self.decoder(tokens), tokens

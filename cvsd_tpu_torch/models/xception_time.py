@@ -16,7 +16,7 @@ flax auto-names (``XceptionBlock_0``, ``XceptionModule_0``, ``Conv_0``,
 by name, both ways.
 
 What differs from PyTorch's stock parts, and is held to JAX by the tests:
-  - flax's BatchNorm (``FlaxBatchNorm1d``): the batch variance is
+  - flax's BatchNorm (``models/layers.py::FlaxBatchNorm``): the batch variance is
     E[x^2] - E[x]^2, clipped at 0, and the running statistics move by
     momentum 0.9 towards the BIASED batch variance; ``nn.BatchNorm1d`` keeps
     the unbiased one;
@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvsd_tpu_torch.models.layers import FlaxBatchNorm
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
 
 BBOX_CHANNELS = ("left", "top", "width", "height")
@@ -147,33 +148,6 @@ def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start
 
 # ---------------------------------------------------------------- model
 
-class FlaxBatchNorm1d(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels of
-    (B, C, T). Training normalizes with the batch statistics (variance
-    E[x^2] - E[x]^2, clipped at 0) and moves the running ones towards them,
-    the biased variance included; evaluation uses the running ones."""
-
-    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
-        super().__init__()
-        self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
-
-
 class XceptionModule(nn.Module):
     """(B, in, T) -> (B, 4 nf, T): bottleneck ``Conv_0``; per kernel 39/19/9 a
     depthwise conv and a pointwise one (``Conv_1``..``Conv_6``); a max-pool
@@ -211,7 +185,7 @@ class XceptionBlock(nn.Module):
             ch = 4 * nf * 2 ** d
             if d % 2 == 1:
                 self.add_module(f"Conv_{d // 2}", nn.Conv1d(res_ch, ch, 1, bias=False))
-                self.add_module(f"BatchNorm_{d // 2}", FlaxBatchNorm1d(ch))
+                self.add_module(f"BatchNorm_{d // 2}", FlaxBatchNorm(ch))
                 res_ch = ch
         self.out_channels = ch
 
@@ -235,9 +209,9 @@ class XceptionTime(nn.Module):
         self.XceptionBlock_0 = XceptionBlock(num_channels, nf, depth)
         c = self.XceptionBlock_0.out_channels
         self.Conv_0 = nn.Conv1d(c, c // 2, 1)
-        self.BatchNorm_0 = FlaxBatchNorm1d(c // 2)
+        self.BatchNorm_0 = FlaxBatchNorm(c // 2)
         self.Conv_1 = nn.Conv1d(c // 2, c // 4, 1)
-        self.BatchNorm_1 = FlaxBatchNorm1d(c // 4)
+        self.BatchNorm_1 = FlaxBatchNorm(c // 4)
         self.Conv_2 = nn.Conv1d(c // 4, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@ The port's modules are named after the flax auto-names (``Backbone_0``,
 ...), so a flax path maps to a torch key mechanically:
 
     params/A/B/Conv_0/kernel       -> A.B.Conv_0.weight        HWIO -> OIHW
+    params/A/ConvTranspose_0/kernel -> A.ConvTranspose_0.weight HWIO -> IOHW, flipped in H and W
     params/A/Conv_1/kernel (1-D)   -> A.Conv_1.weight          (k, in/g, out) -> (out, in/g, k)
     params/A/Dense_0/kernel        -> A.Dense_0.weight         (in,out) -> (out,in)
     params/A/query/kernel          -> A.query.weight           (d,h,hd) -> (h*hd,d)
@@ -16,8 +17,14 @@ The port's modules are named after the flax auto-names (``Backbone_0``,
 The conversion is strict: every flax leaf is consumed, every torch tensor is
 filled (BatchNorm's ``num_batches_tracked`` counter has no flax counterpart
 and is left at 0), and every shape must match. Subtrees the port does not
-hold yet are skipped only when named in ``skip``. ``state_dict_to_flax`` goes
+hold are skipped only when named in ``skip``. ``state_dict_to_flax`` goes
 the other way, for checkpoints the port writes.
+
+flax's ``ConvTranspose`` does not flip its kernel (lax's ``conv_transpose``
+with ``transpose_kernel=False``); ``nn.ConvTranspose2d`` is the gradient of
+a convolution, which does. So a flax ConvTranspose equals the torch one with
+the kernel flipped along both spatial axes (and the torch padding set to
+match flax's, as ``models/gcae.py::GCAEDecoder`` does).
 """
 
 from __future__ import annotations
@@ -43,8 +50,11 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
     return out
 
 
-def _convert_leaf(leaf: str, value: np.ndarray, target_shape: torch.Size) -> np.ndarray:
+def _convert_leaf(leaf: str, value: np.ndarray, target_shape: torch.Size,
+                  transposed: bool = False) -> np.ndarray:
     if leaf == "kernel":
+        if transposed:  # ConvTranspose HWIO -> IOHW, the kernel flipped in H and W
+            return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
         if value.ndim == 4:  # conv HWIO -> OIHW
             return value.transpose(3, 2, 0, 1)
         if value.ndim == 3 and len(target_shape) == 3:  # 1-D conv (k, in/g, out) -> (out, in/g, k)
@@ -86,7 +96,9 @@ def flax_to_state_dict(
             continue
         if isinstance(value, torch.Tensor):  # a bfloat16 leaf read from a checkpoint
             value = value.to(torch.float32).numpy()
-        arr = _convert_leaf(leaf, np.asarray(value, np.float32), target[key].shape)
+        owner = module.get_submodule(".".join(mod_path))
+        arr = _convert_leaf(leaf, np.asarray(value, np.float32), target[key].shape,
+                            isinstance(owner, nn.ConvTranspose2d))
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(
                 f"{'/'.join(path)}: shape {tuple(np.shape(value))} -> {tuple(arr.shape)} "
@@ -122,6 +134,8 @@ def _to_flax_leaf(owner: nn.Module, name: str, leaf: str, value: np.ndarray,
     qkv = heads is not None and name in ("query", "key", "value")
     if leaf == "bias":  # attention q/k/v (h*hd,) -> (h, hd)
         return "params", "bias", value.reshape(heads, -1) if qkv else value
+    if isinstance(owner, nn.ConvTranspose2d):  # IOHW -> HWIO, unflipped
+        return "params", "kernel", value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     if isinstance(owner, nn.Conv2d):  # OIHW -> HWIO
         return "params", "kernel", value.transpose(2, 3, 1, 0)
     if isinstance(owner, nn.Conv1d):  # (out, in/g, k) -> (k, in/g, out)
@@ -174,19 +188,29 @@ def init_module(module: nn.Module, seed: int, xavier: bool = False) -> nn.Module
 
     Conv/Linear weights: lecun-normal (std 1/sqrt(fan_in)), the flax default,
     or xavier-uniform where the JAX module asks for it (GCAE, transformer);
-    biases 0; norm scales 1; running stats mean 0 / var 1. The numbers differ
-    from flax's for the same seed: tests carry flax weights across with the
-    bridge instead."""
+    there, a Linear of a module that names ``flax_kernel_init =
+    "lecun_normal"`` (the attention projections, left at flax's default) is
+    flax's truncated lecun-normal (within 2 standard deviations, rescaled to
+    std 1/sqrt(fan_in)); biases 0; norm scales 1; running stats mean 0 / var
+    1. The numbers differ from flax's for the same seed: tests carry flax
+    weights across with the bridge instead."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         if leaf == "bias":
             vals = torch.zeros(p.shape)
-        elif isinstance(owner, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+        elif isinstance(owner, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             fan_in = int(np.prod(p.shape[1:]))
             fan_out = int(p.shape[0]) * int(np.prod(p.shape[2:]))
-            if xavier:
+            if isinstance(owner, nn.ConvTranspose2d):  # weight is (in, out, kh, kw)
+                fan_in, fan_out = fan_out, fan_in
+            parent = module.get_submodule(name.rsplit(".", 2)[0]) if name.count(".") > 1 else module
+            if xavier and getattr(parent, "flax_kernel_init", None) == "lecun_normal":
+                vals = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0, -2.0, 2.0,
+                                                   generator=gen)
+                vals = vals * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+            elif xavier:
                 a = math.sqrt(6.0 / (fan_in + fan_out))
                 vals = torch.rand(p.shape, generator=gen) * (2 * a) - a
             else:

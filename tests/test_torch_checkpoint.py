@@ -18,7 +18,7 @@ from cvsd_tpu.models.shopformer import Shopformer as ShopformerJax
 from cvsd_tpu.utils import checkpoint as ckpt_jax
 from cvsd_tpu_torch.models.detector import PersonDetector
 from cvsd_tpu_torch.models.pose_topdown import TopDownPoseNet
-from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, Shopformer
+from cvsd_tpu_torch.models.shopformer import Shopformer
 from cvsd_tpu_torch.utils import checkpoint as ckpt
 from cvsd_tpu_torch.utils import flax_msgpack
 from cvsd_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
@@ -167,7 +167,7 @@ def _shopformer():
     cfg = get_default_config_jax()
     jm = ShopformerJax.from_config(cfg)
     return (random_flax_variables(lambda: jm.init_variables(jax.random.PRNGKey(0)), 1),
-            Shopformer.from_config(cfg), SKIP_FLAX)
+            Shopformer.from_config(cfg), ())
 
 
 def _detector(head, nk, seed):

@@ -47,7 +47,7 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 50
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 61
 
 
 def test_default_device_raises_without_cuda():
@@ -66,6 +66,10 @@ def test_default_device_raises_without_cuda():
         from cvsd_tpu_torch.cli import preprocess, serve, stream, train_tabular
         from cvsd_tpu_torch.models.xception_time import XceptionTimeClassifier
         from cvsd_tpu_torch.pipeline.preprocess import preprocess_ucf_crime
+        from cvsd_tpu_torch.train.loop import Trainer, train_from_config
+        from cvsd_tpu_torch.eval.evaluate import evaluate_checkpoint
+        from cvsd_tpu_torch.infer.inference import run_inference
+        from cvsd_tpu_torch.cli import evaluate, inference, train
         cfg = get_default_config()
         cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
         cpu_model = build_shopformer(cfg, device="cpu")
@@ -88,6 +92,14 @@ def test_default_device_raises_without_cuda():
             "preprocess_ucf_crime": lambda: preprocess_ucf_crime(cfg, "no_such_dir"),
             "cli.preprocess": lambda: preprocess.main(["--dataset_dir", "no_such_dir"]),
             "cli.train_tabular": lambda: train_tabular.main(["--csv", "no_such.csv"]),
+            # the device is resolved before the data or a checkpoint is read
+            "Trainer": lambda: Trainer(cfg),
+            "train_from_config": lambda: train_from_config(cfg),
+            "evaluate_checkpoint": lambda: evaluate_checkpoint("no_such.msgpack"),
+            "run_inference": lambda: run_inference("no_such.msgpack"),
+            "cli.train": lambda: train.main(["--use_synthetic"]),
+            "cli.evaluate": lambda: evaluate.main(["--checkpoint", "no_such.msgpack"]),
+            "cli.inference": lambda: inference.main(["--checkpoint", "no_such.msgpack"]),
         }
         for name, fn in calls.items():
             try:
@@ -100,7 +112,7 @@ def test_default_device_raises_without_cuda():
     """)
     assert r.returncode == 0, r.stderr
     assert "FELL_BACK" not in r.stdout, r.stdout
-    assert r.stdout.count("RAISED") == 14, r.stdout
+    assert r.stdout.count("RAISED") == 21, r.stdout
 
 
 def test_nms_cuda_wrapper_refuses_cpu_tensors():

@@ -267,11 +267,17 @@ def _tf32_entry_points(tmp_path):
     """Each float32 entry point, built on the CPU (the CLIs stop at a missing
     file, after they set the flags)."""
     from cvsd_tpu_torch.cli import preprocess as preprocess_cli
+    from cvsd_tpu_torch.cli import evaluate as evaluate_cli
+    from cvsd_tpu_torch.cli import inference as inference_cli
     from cvsd_tpu_torch.cli import serve, stream, train_tabular
+    from cvsd_tpu_torch.cli import train as train_cli
+    from cvsd_tpu_torch.eval.evaluate import evaluate_checkpoint
+    from cvsd_tpu_torch.infer.inference import run_inference
     from cvsd_tpu_torch.eval.evaluate import ShopformerScorer, load_model
     from cvsd_tpu_torch.models.pose_topdown import build_pose_topdown, load_pose_topdown_checkpoint
     from cvsd_tpu_torch.models.shopformer import build_shopformer
     from cvsd_tpu_torch.models.xception_time import XceptionTimeClassifier
+    from cvsd_tpu_torch.train.loop import Trainer, train_from_config
 
     cfg = _configs()[1]
     missing = str(tmp_path / "missing.msgpack")
@@ -290,13 +296,24 @@ def _tf32_entry_points(tmp_path):
             ["--dataset_dir", str(tmp_path / "none"), "--device", "cpu", *_det_overrides()]),
         "cli.train_tabular": lambda: train_tabular.main(
             ["--csv", str(tmp_path / "none.csv"), "--device", "cpu"]),
+        # the trainer stops at the missing PoseLift directory, after the flags
+        "Trainer": lambda: Trainer(cfg, device="cpu"),
+        "train_from_config": lambda: train_from_config(
+            {**cfg, "data": {**cfg["data"], "data_dir": str(tmp_path / "none")}}, device="cpu"),
+        "evaluate_checkpoint": lambda: evaluate_checkpoint(missing, device="cpu"),
+        "run_inference": lambda: run_inference(missing, device="cpu"),
+        "cli.train": lambda: train_cli.main(
+            ["--set", f"data.data_dir={tmp_path / 'none'}", "--device", "cpu"]),
+        "cli.evaluate": lambda: evaluate_cli.main(["--checkpoint", missing, "--device", "cpu"]),
+        "cli.inference": lambda: inference_cli.main(["--checkpoint", missing, "--device", "cpu"]),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "ShopformerScorer", "DetectionPipeline", "build_pose_topdown",
     "load_pose_topdown_checkpoint", "load_model", "XceptionTimeClassifier", "cli.serve",
-    "cli.stream", "cli.preprocess", "cli.train_tabular"])
+    "cli.stream", "cli.preprocess", "cli.train_tabular", "Trainer", "train_from_config",
+    "evaluate_checkpoint", "run_inference", "cli.train", "cli.evaluate", "cli.inference"])
 def test_float32_entry_point_turns_tf32_off(entry, tmp_path):
     """The port runs float32 as float32 on the card: building a float32
     entry point sets cuDNN's and cuBLAS's TF32 flags to False (set True
@@ -308,7 +325,8 @@ def test_float32_entry_point_turns_tf32_off(entry, tmp_path):
         try:
             _tf32_entry_points(tmp_path)[entry]()
         except FileNotFoundError:
-            assert entry.startswith("cli.") or entry.startswith("load")
+            assert entry.startswith("cli.") or entry.startswith("load") or entry in (
+                "train_from_config", "evaluate_checkpoint", "run_inference")
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
     finally:

@@ -27,7 +27,7 @@ from cvsd_tpu.serve.server import ScoringServer as ScoringServerJax
 from cvsd_tpu_torch.config import get_default_config
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
 from cvsd_tpu_torch.models.detector import build_detector
-from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, build_shopformer
+from cvsd_tpu_torch.models.shopformer import build_shopformer
 from cvsd_tpu_torch.ops.letterbox import letterbox_params
 from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
 from cvsd_tpu_torch.serve.microbatch import MicroBatcher
@@ -73,7 +73,7 @@ def _port_parts(weights):
     _cfg_j, _sf_j, sf_vars, det_vars = weights
     cfg = _config(get_default_config())
     sf = build_shopformer(cfg, device="cpu")
-    sf.load_state_dict(flax_to_state_dict(sf_vars, sf, skip=SKIP_FLAX))
+    sf.load_state_dict(flax_to_state_dict(sf_vars, sf))
     det_sd = flax_to_state_dict(det_vars, build_detector(cfg, device="cpu"))
     return (ShopformerScorer(sf, cfg, device="cpu"),
             DetectionPipeline(cfg, state_dict=det_sd, device="cpu"))

@@ -12,7 +12,7 @@ from cvsd_tpu.eval.evaluate import ShopformerScorer as ShopformerScorerJax
 from cvsd_tpu.models.shopformer import Shopformer as ShopformerJax
 from cvsd_tpu_torch.config import get_default_config
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
-from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, Shopformer, build_shopformer
+from cvsd_tpu_torch.models.shopformer import Shopformer, build_shopformer
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
 from torch_testutil import random_flax_variables
 
@@ -31,7 +31,7 @@ def _pair(variant, seed):
     jm = ShopformerJax.from_config(cfg)
     variables = random_flax_variables(lambda: jm.init_variables(jax.random.PRNGKey(0)), seed)
     tm = Shopformer.from_config(cfg)
-    load_flax_variables(tm, variables, skip=SKIP_FLAX)
+    load_flax_variables(tm, variables)
     return cfg, jm, variables, tm.eval()
 
 
@@ -67,11 +67,19 @@ def test_scorer_ragged_tail_matches_jax(poses):
 
 
 def test_bridge_skips_only_named_subtrees():
+    """The whole flax Shopformer, GCAE decoder included, fills the port's
+    module; the bridge stays strict: a skipped subtree the module holds
+    leaves its tensors unfilled, and an extra leaf has no counterpart."""
     cfg, _jm, variables, tm = _pair("v2", seed=4)
-    with pytest.raises(KeyError, match="no torch counterpart"):
-        flax_to_state_dict(variables, tm)  # the GCAE decoder is not held
-    sd = flax_to_state_dict(variables, tm, skip=SKIP_FLAX)
+    sd = flax_to_state_dict(variables, tm)
     assert set(sd) == set(tm.state_dict())
+    assert any(k.startswith("gcae.decoder.ConvTranspose_") for k in sd)
+    with pytest.raises(KeyError, match="not filled"):
+        flax_to_state_dict(variables, tm, skip=("gcae/decoder",))
+    extra = {**variables, "params": {**variables["params"], "extra": {"Dense_0": {
+        "kernel": np.zeros((2, 2), np.float32)}}}}
+    with pytest.raises(KeyError, match="no torch counterpart"):
+        flax_to_state_dict(extra, tm)
     a = build_shopformer(cfg, device="cpu", seed=5).state_dict()
     b = build_shopformer(cfg, device="cpu", seed=5).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)

@@ -23,7 +23,7 @@ from cvsd_tpu_torch.config import get_default_config
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
 from cvsd_tpu_torch.models.detector import build_detector
 from cvsd_tpu_torch.models.pose_topdown import TopDownPoseNet, build_pose_topdown, pose_from_boxes
-from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, build_shopformer
+from cvsd_tpu_torch.models.shopformer import build_shopformer
 from cvsd_tpu_torch.ops.letterbox import letterbox_batch
 from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
 from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
@@ -163,7 +163,7 @@ def test_streaming_slice2_matches_jax(tmp_path):
         vids, max_streams=4)
 
     sf_t = build_shopformer(cfg_t, device="cpu")
-    sf_t.load_state_dict(flax_to_state_dict(sf_vars, sf_t, skip=SKIP_FLAX))
+    sf_t.load_state_dict(flax_to_state_dict(sf_vars, sf_t))
     det_sd = flax_to_state_dict(det_vars, build_detector(cfg_t, device="cpu"))
     pipe = StreamingPipeline(cfg_t, ShopformerScorer(sf_t, cfg_t, device="cpu"),
                              detector_state_dict=det_sd, device="cpu", pose_model=pose_t)

@@ -20,7 +20,7 @@ from cvsd_tpu_torch.config import get_default_config
 from cvsd_tpu_torch.data.video import VideoBatcher
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
 from cvsd_tpu_torch.models.detector import build_detector
-from cvsd_tpu_torch.models.shopformer import SKIP_FLAX, build_shopformer
+from cvsd_tpu_torch.models.shopformer import build_shopformer
 from cvsd_tpu_torch.pipeline.streaming import ArraySource, RoundRobinReader, StreamingPipeline
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict
 from torch_testutil import random_flax_variables
@@ -68,7 +68,7 @@ def fixture(tmp_path_factory):
 
     det_sd = flax_to_state_dict(det_vars, build_detector(cfg_t, device="cpu"))
     sf_t = build_shopformer(cfg_t, device="cpu")
-    sf_t.load_state_dict(flax_to_state_dict(sf_vars, sf_t, skip=SKIP_FLAX))
+    sf_t.load_state_dict(flax_to_state_dict(sf_vars, sf_t))
     pipe = StreamingPipeline(cfg_t, ShopformerScorer(sf_t, cfg_t, device="cpu"),
                              detector_state_dict=det_sd, device="cpu")
     out_t = pipe.stream_videos_concurrent(vids, max_streams=4)
