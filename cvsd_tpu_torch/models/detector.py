@@ -8,6 +8,21 @@ Submodules carry the flax auto-names (``Backbone_0``, ``C3_2``,
 ``ConvBNAct_1``, ``Conv_0``, ``BatchNorm_0``, ...) so flax weights load
 through ``utils/weights.py`` by a mechanical key map. Images are NHWC at the
 public functions; the convolutions run NCHW (``channels_last`` on the card).
+
+Precision. The reference computes in ``dtype`` (bfloat16 by default) over
+float32 parameters (flax's ``dtype`` / ``param_dtype`` split). The port does
+the same with explicit casts: ``PersonDetector.forward`` casts the images to
+``dtype``, each ``Conv2d`` casts its float32 weight and bias to its input's
+dtype at the call, and each ``FlaxBatchNorm`` (flax's train-mode BatchNorm,
+momentum 0.97, eps 1e-3) reduces in float32 and returns the input's dtype.
+So training (``train/detector_train.py``) keeps float32 master weights and
+float32 running statistics, which Adam's small updates and the 0.97
+momentum need. ``torch.autocast`` is not used: its op lists (which ops run
+in float32, which in half) are not flax's. ``build_detector``, the serving
+path, casts the whole module to ``dtype`` once, so the casts are no-ops
+there and its outputs are those of the port before training came;
+``load_detector_checkpoint`` keeps the float32 parameters, as the
+reference's loader does.
 """
 
 from __future__ import annotations
@@ -21,8 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from cvsd_tpu_torch.data.augment import flip_permutation
+from cvsd_tpu_torch.models.layers import FlaxBatchNorm
 from cvsd_tpu_torch.ops.nms import batched_nms, check_nms_method
-from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, torch_dtype
+from cvsd_tpu_torch.utils.device import (DeviceLike, resolve_device, torch_dtype,
+                                         use_float32_math)
 
 STRIDES = (8, 16, 32)
 
@@ -39,14 +56,25 @@ class _Named(nn.Module):
         return module
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: the weight and bias are cast to it
+    at the call, as flax's ``Conv(dtype=...)`` casts its float32 parameters
+    (a no-op where they already have that dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class ConvBNAct(nn.Module):
-    """Conv (no bias) -> BatchNorm (eps 1e-3, ultralytics') -> SiLU."""
+    """Conv (no bias) -> BatchNorm (flax's, momentum 0.97, eps 1e-3: ultralytics'
+    torch momentum 0.03) -> SiLU."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__()
         p = (kernel - 1) // 2  # the stem's k=6, s=2 gets p=2
-        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, p, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-3)
+        self.Conv_0 = Conv2d(cin, cout, kernel, stride, p, bias=False)
+        self.BatchNorm_0 = FlaxBatchNorm(cout, momentum=0.97, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.BatchNorm_0(self.Conv_0(x)))
@@ -164,13 +192,13 @@ class DetectHead(nn.Module):
     def __init__(self, c: int, num_keypoints: int = 0):
         super().__init__()
         self.ConvBNAct_0 = ConvBNAct(c, c, 3)
-        self.Conv_0 = nn.Conv2d(c, 4, 1)
+        self.Conv_0 = Conv2d(c, 4, 1)
         self.ConvBNAct_1 = ConvBNAct(c, c, 3)
-        self.Conv_1 = nn.Conv2d(c, 1, 1)
+        self.Conv_1 = Conv2d(c, 1, 1)
         self.num_keypoints = num_keypoints
         if num_keypoints:
             self.ConvBNAct_2 = ConvBNAct(c, c, 3)
-            self.Conv_2 = nn.Conv2d(c, num_keypoints * 3, 1)
+            self.Conv_2 = Conv2d(c, num_keypoints * 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = [self.Conv_0(self.ConvBNAct_0(x)), self.Conv_1(self.ConvBNAct_1(x))]
@@ -190,14 +218,14 @@ class V8DFLHead(nn.Module):
         super().__init__()
         self.ConvBNAct_0 = ConvBNAct(c, box_ch, 3)
         self.ConvBNAct_1 = ConvBNAct(box_ch, box_ch, 3)
-        self.Conv_0 = nn.Conv2d(box_ch, 4 * reg_max, 1)
+        self.Conv_0 = Conv2d(box_ch, 4 * reg_max, 1)
         self.ConvBNAct_2 = ConvBNAct(c, cls_ch, 3)
         self.ConvBNAct_3 = ConvBNAct(cls_ch, cls_ch, 3)
-        self.Conv_1 = nn.Conv2d(cls_ch, num_classes, 1)
+        self.Conv_1 = Conv2d(cls_ch, num_classes, 1)
         self.num_keypoints = num_keypoints
         if num_keypoints:
             self.ConvBNAct_4 = ConvBNAct(c, c, 3)
-            self.Conv_2 = nn.Conv2d(c, num_keypoints * 3, 1)
+            self.Conv_2 = Conv2d(c, num_keypoints * 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = [self.Conv_0(self.ConvBNAct_1(self.ConvBNAct_0(x))),
@@ -223,6 +251,9 @@ class PersonDetector(nn.Module):
         if head_variant not in ("anchor_free", "v8dfl"):
             raise ValueError(f"unknown head_variant {head_variant!r}")
         self.img_size = img_size
+        self.width_mult = width_mult
+        self.depth_mult = depth_mult
+        self.channel_divisor = channel_divisor
         self.num_keypoints = num_keypoints
         self.head_variant = head_variant
         self.num_classes = num_classes
@@ -429,3 +460,25 @@ def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int 
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
+
+
+def load_detector_checkpoint(path: str, device: DeviceLike = None
+                             ) -> Tuple[PersonDetector, Dict[str, Any], Dict[str, Any]]:
+    """(PersonDetector, variables, meta) from a ``DetectorTrainer.save`` file
+    of either package: the architecture rebuilt from the embedded
+    ``config['detector']``, the weights filled strictly from the file's flax
+    ``variables`` (numpy, also returned), float32 parameters computing in the
+    configured dtype (see the module docstring), on ``device`` (default: the
+    CUDA card, raising without one), in eval mode."""
+    from cvsd_tpu_torch.utils.checkpoint import load_checkpoint
+    from cvsd_tpu_torch.utils.weights import load_flax_variables
+
+    dev = resolve_device(device)  # a missing card is reported before the file is read
+    variables, meta = load_checkpoint(path)
+    model = load_flax_variables(detector_from_config((meta or {}).get("config") or {}), variables)
+    if model.dtype == torch.float32:
+        use_float32_math()
+    model = model.to(dev).eval()
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model, variables, meta

@@ -1,14 +1,18 @@
 """Train-mode building blocks with flax's semantics, shared by the GCAE, the
 transformer and XceptionTime.
 
-- ``FlaxBatchNorm``: flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over
-  any feature dims. Training normalizes with the batch statistics (variance
-  E[x^2] - E[x]^2, clipped at 0) and moves the running ones towards them by
-  momentum 0.9, the BIASED variance included; evaluation uses the running
-  ones. ``nn.BatchNorm2d`` keeps the unbiased variance and counts momentum
-  the other way, so it cannot stand in for training; evaluation over the
-  channels of (B, C, ...) is ``F.batch_norm``'s, as the port computed it
-  before training came, so its scores do not move by a bit.
+- ``FlaxBatchNorm``: flax ``nn.BatchNorm(momentum, epsilon)`` (default 0.9,
+  1e-5) over any feature dims. Training normalizes with the batch
+  statistics (variance E[x^2] - E[x]^2, clipped at 0) and moves the running
+  ones towards them by ``momentum``, the BIASED variance included;
+  evaluation uses the running ones. ``nn.BatchNorm2d`` keeps the unbiased
+  variance, takes a two-pass variance and counts momentum the other way, so
+  it cannot stand in for training; evaluation over the channels of
+  (B, C, ...) whose input has the statistics' dtype is ``F.batch_norm``'s,
+  as the port computed it before training came, so its outputs do not move
+  by a bit. A half-precision input (a bfloat16 detector over float32
+  parameters) is reduced and normalized in float32 and returned in its own
+  dtype, as flax's ``force_float32_reductions`` does.
 - ``DropoutRNG`` and ``dropout``: flax ``nn.Dropout`` (keep with probability
   1 - p, scale kept values by 1/(1 - p)) drawing from one explicit
   ``torch.Generator``, never the global RNG. The masks drawn in a forward are
@@ -49,15 +53,17 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(*shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training and self.feature_dims == (1,):
+        if (not self.training and self.feature_dims == (1,)
+                and x.dtype == self.running_mean.dtype):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
         feat = [d % x.ndim for d in self.feature_dims]
         reduce = tuple(d for d in range(x.ndim) if d not in feat)
         view = [x.shape[d] if d in feat else 1 for d in range(x.ndim)]
+        x32 = x.float()  # a no-op for float32 input
         if self.training:
-            mean = x.mean(dim=reduce)
-            var = torch.clamp((x * x).mean(dim=reduce) - mean * mean, min=0.0)
+            mean = x32.mean(dim=reduce)
+            var = torch.clamp((x32 * x32).mean(dim=reduce) - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
@@ -65,7 +71,7 @@ class FlaxBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
+        return ((x32 - mean.view(view)) * mul.view(view) + self.bias.view(view)).to(x.dtype)
 
 
 @contextlib.contextmanager

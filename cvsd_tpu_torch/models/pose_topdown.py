@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvsd_tpu_torch.models.layers import FlaxBatchNorm
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
 
 
@@ -85,8 +86,8 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 class TopDownPoseNet(nn.Module):
     """Small conv net: (N, S, S, 3) crops -> (N, S/4, S/4, K) heatmap logits,
-    float32. Six 3x3 conv -> BatchNorm (eps 1e-3) -> SiLU layers (two of
-    stride 2) and a 1x1 conv to the K joints."""
+    float32. Six 3x3 conv -> BatchNorm (flax's, momentum 0.97, eps 1e-3) ->
+    SiLU layers (two of stride 2) and a 1x1 conv to the K joints."""
 
     def __init__(self, num_keypoints: int = 17, width: int = 32, crop_size: int = 64,
                  temperature: float = 1.0):
@@ -101,7 +102,7 @@ class TopDownPoseNet(nn.Module):
         self.strides = tuple(s for _, _, s in layers)
         for i, (cin, cout, stride) in enumerate(layers):
             self.add_module(f"Conv_{i}", nn.Conv2d(cin, cout, 3, stride, 0, bias=False))
-            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(cout, eps=1e-3))
+            self.add_module(f"BatchNorm_{i}", FlaxBatchNorm(cout, momentum=0.97, eps=1e-3))
         self.Conv_6 = nn.Conv2d(4 * w, num_keypoints, 1)
 
     def forward(self, crops: torch.Tensor) -> torch.Tensor:

@@ -183,10 +183,14 @@ def state_dict_to_flax(module: nn.Module, skip: Iterable[str] = ()) -> Dict[str,
 
 
 @torch.no_grad()
-def init_module(module: nn.Module, seed: int, xavier: bool = False) -> nn.Module:
+def init_module(module: nn.Module, seed: int, xavier: bool = False,
+                truncated: bool = False) -> nn.Module:
     """Deterministic init from a seeded ``torch.Generator`` on the CPU.
 
-    Conv/Linear weights: lecun-normal (std 1/sqrt(fan_in)), the flax default,
+    Conv/Linear weights: lecun-normal (std 1/sqrt(fan_in)); with
+    ``truncated``, flax's default ``lecun_normal()`` itself (a normal
+    truncated at 2 standard deviations, rescaled to std 1/sqrt(fan_in)), which
+    the trainers start from, as the reference's do;
     or xavier-uniform where the JAX module asks for it (GCAE, transformer);
     there, a Linear of a module that names ``flax_kernel_init =
     "lecun_normal"`` (the attention projections, left at flax's default) is
@@ -206,7 +210,8 @@ def init_module(module: nn.Module, seed: int, xavier: bool = False) -> nn.Module
             if isinstance(owner, nn.ConvTranspose2d):  # weight is (in, out, kh, kw)
                 fan_in, fan_out = fan_out, fan_in
             parent = module.get_submodule(name.rsplit(".", 2)[0]) if name.count(".") > 1 else module
-            if xavier and getattr(parent, "flax_kernel_init", None) == "lecun_normal":
+            if truncated or (xavier and getattr(parent, "flax_kernel_init", None)
+                             == "lecun_normal"):
                 vals = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0, -2.0, 2.0,
                                                    generator=gen)
                 vals = vals * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)

@@ -47,7 +47,7 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 61
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 70
 
 
 def test_default_device_raises_without_cuda():
@@ -70,6 +70,13 @@ def test_default_device_raises_without_cuda():
         from cvsd_tpu_torch.eval.evaluate import evaluate_checkpoint
         from cvsd_tpu_torch.infer.inference import run_inference
         from cvsd_tpu_torch.cli import evaluate, inference, train
+        from cvsd_tpu_torch.models.detector import PersonDetector, load_detector_checkpoint
+        from cvsd_tpu_torch.models.pose_topdown import TopDownPoseNet
+        from cvsd_tpu_torch.train.detector_train import DetectorTrainer
+        from cvsd_tpu_torch.train.pose_topdown_train import TopDownPoseTrainer
+        from cvsd_tpu_torch.eval.detection import evaluate_detector
+        from cvsd_tpu_torch.sweep import run_sweep
+        from cvsd_tpu_torch.cli import sweep, train_detector
         cfg = get_default_config()
         cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
         cpu_model = build_shopformer(cfg, device="cpu")
@@ -100,6 +107,14 @@ def test_default_device_raises_without_cuda():
             "cli.train": lambda: train.main(["--use_synthetic"]),
             "cli.evaluate": lambda: evaluate.main(["--checkpoint", "no_such.msgpack"]),
             "cli.inference": lambda: inference.main(["--checkpoint", "no_such.msgpack"]),
+            # the device is resolved before weights, files or configs are touched
+            "DetectorTrainer": lambda: DetectorTrainer(PersonDetector(64, 0.25, 0.34)),
+            "TopDownPoseTrainer": lambda: TopDownPoseTrainer(TopDownPoseNet(17, 8, 32)),
+            "load_detector_checkpoint": lambda: load_detector_checkpoint("no_such.msgpack"),
+            "evaluate_detector": lambda: evaluate_detector(None, [], [], []),
+            "run_sweep": lambda: run_sweep([], "no_such_dir"),
+            "cli.train_detector": lambda: train_detector.main(["--images", "no_such_dir"]),
+            "cli.sweep": lambda: sweep.main(["--mode", "quick"]),
         }
         for name, fn in calls.items():
             try:
@@ -112,7 +127,7 @@ def test_default_device_raises_without_cuda():
     """)
     assert r.returncode == 0, r.stderr
     assert "FELL_BACK" not in r.stdout, r.stdout
-    assert r.stdout.count("RAISED") == 21, r.stdout
+    assert r.stdout.count("RAISED") == 28, r.stdout
 
 
 def test_nms_cuda_wrapper_refuses_cpu_tensors():
