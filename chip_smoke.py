@@ -84,6 +84,26 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      layout (with cv2 both checkpoints written, without it an error naming
      cv2) and ``cli.sweep --mode quick --max_configs 2`` (every status ok),
      as subprocesses on the card
+  12. int8: (a) slice 1's detector at full width (BatchNorm statistics and
+     affine randomised, so folding does real work) quantized by
+     quantize_detector on 256 rendered, host-letterboxed frames (batch 16),
+     its int8 checkpoint read by load_detector_cli -> DetectionPipeline on
+     phase 3's B=128 frames with no --set: ms/batch, frames/s, peak memory,
+     the nms_fixpoint launches (0 before, one a batch after) and the int8
+     GEMM calls (one a ConvBNAct); bf16 and int8 in turns on the same
+     frames; one int8 batch split by stage (quantize, im2col, _int_mm,
+     dequantize + SiLU, the rest); (b) the int8 route (im2col + _int_mm)
+     bit-exact against its float64 plain version on three full-width layers'
+     real inputs (the stem with K padded, a 3x3 bottleneck conv, the 1x1
+     after SPPF's pools) and on a test-size p5 layer (M padded), then the
+     test-size int8 forward card vs CPU; (c) QAT at full width (batch 16, 16
+     steps in chunks of 8): steps/s, peak memory, the loss falls, no
+     act_scale moves, finalize_qat within 0.02 of the fake-quant forward;
+     one float32 QAT step at the test size card vs CPU (and with TF32, which
+     the gradient limit must fail); (d) ``python -m
+     cvsd_tpu_torch.cli.quantize_detector --qat_steps 2``, then cli.stream,
+     cli.pose_export and cli.annotate on its int8 file (with cv2; without
+     it each must exit naming cv2)
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
      then the result line
 
@@ -96,14 +116,14 @@ TF32 from float32; the stream fixture's TF32 reading is only printed (its
 small detector moves the keypoints little either way).
 
 Kernel launch counts are set to 0 just before each detect, stream, serve,
-preprocess and detector-eval phase drives a pipeline and read just after (the serve
+preprocess, detector-eval and int8 detect phase drives a pipeline and read just after (the serve
 subprocess's launches are its own; phase 7(c) counts the in-process
 server's); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
 entry point (in the reference only a test reaches it), so no phase launches
 it and its count on the main path is 0. Bounds are taken against the H100
-SXM's published peaks (3.35 TB/s, 67 TFLOP/s FP32 outside the tensor cores)
-at its full 700 W power limit.
+SXM's published peaks (3.35 TB/s, 67 TFLOP/s FP32 outside the tensor cores,
+1,979 TOP/s int8 in the tensor cores) at its full 700 W power limit.
 """
 
 from __future__ import annotations
@@ -1918,6 +1938,561 @@ def drive_detector_train(tmp: str, dev, cpu, nms_mod) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the int8 detector
+
+INT8_CALIB_FRAMES = 256  # cli.quantize_detector's defaults: 256 frames in batches of 16
+INT8_CALIB_BATCH = 16
+INT8_ITERS = 10  # int8 detector batches of phase 3's B=128 frames in the counted run
+INT8_TURN = 5  # batches per turn of the bf16 / int8 comparison (bf16, int8, int8, bf16)
+# three full-width ConvBNActs held route vs plain on their real inputs
+INT8_LAYERS = ("Backbone_0.ConvBNAct_0",  # the stem: 6x6 / 2, K = 108 padded to 112
+               "Backbone_0.C3_0.Bottleneck_0.ConvBNAct_1",  # a C3 bottleneck's 3x3
+               "Backbone_0.SPPF_0.ConvBNAct_1")  # the 1x1 after SPPF's pools
+INT8_P5_LAYER = "PANNeck_0.C3_3.Bottleneck_0.ConvBNAct_1"  # 3x3 on p5: M = 8 at img 64, B=2
+INT8_FIXTURE = dict(img_size=64, width_mult=0.25, depth_mult=0.34, pose_head=True,
+                    dtype="float32", batch_size=4, conf_threshold=0.0, max_detections=2)
+QAT_BATCH = 16
+QAT_STEPS = 16
+QAT_CHUNK = 8  # steps per train_steps_scan call
+QAT_SCENES = 64  # pre-rendered 640x640 one-person scenes the QAT batches are drawn from
+QAT_LR = 1e-3
+INT8_CLI_FRAMES = 40  # the rendered video of the CLIs (160x128)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+# The test-size int8 fixture card vs CPU (float32 activations), ~10x the
+# readings on an H100 (PERF.md gives them): the share of int8 activations
+# that differ (0 of 391,168 read: the limit allows ~4) and the largest
+# head-map gap against the largest entry (1.5e-07 read).
+TOL_INT8_SHARE = 1e-5
+TOL_INT8_MAP = 1.5e-6
+# finalize_qat's serving forward against the fake-quant forward, against the
+# largest fake-quant output: the JAX test's own limit (bf16 casts between
+# layers make it near-, not bit-exact)
+TOL_QAT_FINAL = 0.02
+# One float32 QAT step at the test size card vs CPU (~10x the readings on an
+# H100, PERF.md): the loss (relative; 0 read, TF32 2.6e-05) and the gradients
+# against the largest gradient anywhere (1.9e-07 read, TF32 3.2e-03); the
+# gradient limit must fail TF32. The act_scales must not move at all.
+TOL_QAT_LOSS_F32 = 1e-6
+TOL_QAT_GRAD_F32 = 2e-6
+
+
+def randomized_detector_variables(cfg: dict, seed: int) -> dict:
+    """``cfg``'s detector with seeded random weights and its BatchNorm
+    statistics and affine randomised as the JAX package's int8 tests
+    randomise them (scale U(0.5, 1.5), bias N(0, 0.05), mean N(0, 0.2), var
+    U(0.3, 2)), so that folding does real work; as flax variables."""
+    from cvsd_tpu_torch.models.detector import detector_from_config
+    from cvsd_tpu_torch.models.layers import FlaxBatchNorm
+    from cvsd_tpu_torch.utils.weights import init_module, state_dict_to_flax
+
+    model = init_module(detector_from_config(cfg), seed)
+    rng = np.random.RandomState(seed + 1)
+
+    def fill(t, values):
+        t.copy_(torch.from_numpy(values.astype(np.float32)))
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FlaxBatchNorm):
+                fill(m.weight, rng.uniform(0.5, 1.5, m.weight.shape))
+                fill(m.bias, rng.normal(0, 0.05, m.bias.shape))
+                fill(m.running_mean, rng.normal(0, 0.2, m.running_mean.shape))
+                fill(m.running_var, rng.uniform(0.3, 2.0, m.running_var.shape))
+    return state_dict_to_flax(model)
+
+
+def convbnact_inputs(model, run, names=None) -> dict:
+    """The input of every (or each named) int8 ConvBNAct of ``model`` during
+    ``run()``, by module name."""
+    from cvsd_tpu_torch.models.detector_int8 import ConvBNAct
+
+    got, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBNAct) and (names is None or name in names):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args, name=name: got.__setitem__(name, args[0])))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def quantize_input(m, x: torch.Tensor) -> torch.Tensor:
+    """A serving ConvBNAct's int8 input, as its forward makes it."""
+    return torch.clamp(torch.round(x.to(torch.float32) / m.act_scale), -127.0, 127.0).to(
+        torch.int8)
+
+
+def int8_split(model, inputs: dict) -> dict:
+    """Device milliseconds of one int8 batch's ConvBNActs by stage, summed
+    over every layer on its captured input (CUDA events, each stage run 3
+    times a layer): quantize (the float32 input to int8), im2col (the int8
+    patch matrix, padding included), _int_mm (cuBLASLt's int8 GEMM), and
+    dequantize + bias + SiLU (to the activation dtype)."""
+    import torch.nn.functional as F
+
+    from cvsd_tpu_torch.ops.int8_conv import im2col_int8
+
+    ms = {"quantize": 0.0, "im2col": 0.0, "int_mm": 0.0, "dequantize_silu": 0.0}
+
+    def timed(stage, fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms[stage] += e0.elapsed_time(e1) / reps
+        return out
+
+    with torch.no_grad():
+        for name, x in inputs.items():
+            m = model.get_submodule(name)
+            xq = timed("quantize", lambda: quantize_input(m, x))
+            cols = timed("im2col", lambda: im2col_int8(xq, m.kernel, m.stride))
+            w = m.w_int8
+            pad_k, pad_n = cols.shape[1] - w.shape[1], -w.shape[0] % 8
+            if pad_k or pad_n:
+                w = F.pad(w, (0, pad_k, 0, pad_n))
+            if cols.shape[0] <= 16:
+                cols = F.pad(cols, (0, 0, 0, 32 - cols.shape[0]))
+            acc = timed("int_mm", lambda: torch._int_mm(cols, w.t()))
+            timed("dequantize_silu", lambda: F.silu(
+                acc.to(torch.float32) * (m.act_scale * F.pad(m.w_scale, (0, pad_n)))
+                + F.pad(m.bias, (0, pad_n))).to(m.dtype))
+            del xq, cols, acc
+    return ms
+
+
+def int8_layer_check(m, x: torch.Tensor) -> dict:
+    """One ConvBNAct on its real input: the GEMM route against the float64
+    plain version on the card (int32 accumulators bit for bit), both timed,
+    beside cuDNN's bf16 convolution of the dequantized weights (the float
+    path's yardstick) and the bound of an int8 convolution of that shape."""
+    import torch.nn.functional as F
+
+    from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm, int8_conv_plain
+
+    with torch.no_grad():
+        xq = quantize_input(m, x)
+        saved = int8_conv_gemm.launches
+        got = int8_conv_gemm(xq, m.w_int8, m.kernel, m.stride)
+        ref = int8_conv_plain(xq, m.w_int8, m.kernel, m.stride)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, ref))
+        route_ms = cuda_ms(lambda: int8_conv_gemm(xq, m.w_int8, m.kernel, m.stride), 10, 2)
+        int8_conv_gemm.launches = saved
+        plain_ms = cuda_ms(lambda: int8_conv_plain(xq, m.w_int8, m.kernel, m.stride), 3, 1)
+        k, cin, cout = m.kernel, m.cin, m.features
+        w_f = (m.w_int8.to(torch.float32) * m.w_scale[:, None]).reshape(cout, k, k, cin).permute(
+            0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, w_f, None, m.stride, (k - 1) // 2), 10, 2)
+    B, Ho, Wo, N = got.shape
+    M, K = B * Ho * Wo, k * k * cin
+    nbytes = xq.numel() + m.w_int8.numel() + got.numel() * 4
+    nops = 2 * M * N * K
+    bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
+    return {"exact": exact, "M": M, "K": K, "N": N,
+            "max_abs_err": float((got.double() - ref.double()).abs().max()),
+            "route_ms": route_ms, "plain_ms": plain_ms, "cudnn_bf16_ms": cudnn_ms,
+            "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= nops / INT8_OPS_PER_S else "operations"}
+
+
+def int8_fixture():
+    """The test-sized int8 detector (INT8_FIXTURE) quantized on the CPU from
+    seeded, BatchNorm-randomised weights and 2 calibration batches of
+    rendered, letterboxed scenes; returns (its float variables, its int8
+    variables, the float model on the CPU, a batch of test images)."""
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.data.render import render_scene
+    from cvsd_tpu_torch.models.detector import detector_from_config
+    from cvsd_tpu_torch.models.detector_int8 import quantize_detector
+    from cvsd_tpu_torch.ops.letterbox import letterbox_batch
+    from cvsd_tpu_torch.utils.weights import load_flax_variables
+
+    cfg = get_default_config()
+    cfg["detector"].update(INT8_FIXTURE)
+    variables = randomized_detector_variables(cfg, 50)
+    model = load_flax_variables(detector_from_config(cfg), variables).eval()
+    rng = np.random.default_rng(51)
+    u8 = (np.stack([render_scene(rng, 128, 160)[0] for _ in range(6)]) * 255).round()
+    canvas = letterbox_batch(torch.from_numpy(u8.astype(np.uint8)), size=64,
+                             dtype=torch.float32).numpy()
+    _q, qvars = quantize_detector(model, variables, [canvas[:2], canvas[2:4]])
+    return cfg, variables, qvars, model, canvas[4:]
+
+
+def drive_int8_clis(tmp: str, fx_cfg: dict, fx_variables: dict, dev) -> dict:
+    """12(d): ``python -m cvsd_tpu_torch.cli.quantize_detector --qat_steps 2``
+    on the test-sized float checkpoint, then, with cv2, ``cli.stream``,
+    ``cli.pose_export`` and ``cli.annotate`` (together) on a rendered video
+    with that int8 checkpoint and no --set: the events, the pickles and the
+    mp4 exist and hold the source's frames. Without cv2 each of the three
+    must exit non-zero naming cv2. All on their default device (the card)."""
+    import pickle
+
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.models.detector import load_detector_checkpoint
+    from cvsd_tpu_torch.models.detector_int8 import QuantPersonDetector
+    from cvsd_tpu_torch.models.shopformer import build_shopformer
+    from cvsd_tpu_torch.utils.checkpoint import save_checkpoint
+    from cvsd_tpu_torch.utils.weights import state_dict_to_flax
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    float_path, int8_path = (os.path.join(tmp, n) for n in ("fx_float.msgpack", "fx_int8.msgpack"))
+    save_checkpoint(float_path, fx_variables, config={"detector": fx_cfg["detector"]})
+    out = {"cv2": has_cv2}
+    t0 = time.perf_counter()
+    r = subprocess.run(cli_command("quantize_detector", "--detector_checkpoint", float_path,
+                                   "--output", int8_path, "--calib_frames", "32",
+                                   "--calib_batch", "16", "--qat_steps", "2", "--qat_batch", "4"),
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    out["quantize_s"] = time.perf_counter() - t0
+    if r.returncode != 0 or "qat 2/2" not in r.stdout:
+        fail(f"cli.quantize_detector --qat_steps 2 exited {r.returncode}: {r.stderr[-2000:]}")
+    qm, qv, meta = load_detector_checkpoint(int8_path, dev)
+    leaf = qv["params"]["Backbone_0"]["ConvBNAct_0"]["w_int8"]
+    if (not isinstance(qm, QuantPersonDetector) or leaf.dtype != np.int8
+            or meta["config"]["detector"].get("quantized") is not True):
+        fail("cli.quantize_detector's file does not load as an int8 detector")
+    # the Shopformer checkpoint whose embedded config is the session's
+    sf_cfg = get_default_config()
+    sf_cfg["detector"].update({k: v for k, v in INT8_FIXTURE.items()
+                               if k in ("batch_size", "conf_threshold", "max_detections")})
+    sf_cfg["model"]["hidden_channels"] = 8
+    sf_cfg["data"]["stride"] = 6
+    sf_path = os.path.join(tmp, "fx_shopformer.msgpack")
+    save_checkpoint(sf_path, state_dict_to_flax(build_shopformer(sf_cfg, device=dev, seed=52)),
+                    config=sf_cfg)
+    video = os.path.join(tmp, "fx_clip.mp4")
+    if has_cv2:
+        from cvsd_tpu_torch.data.video import write_test_video
+
+        write_test_video(video, num_frames=INT8_CLI_FRAMES, width=160, height=128, seed=5)
+    events, pl, ann = (os.path.join(tmp, n) for n in ("fx_events.json", "fx_poselift", "fx_ann"))
+    cmds = {
+        "stream": cli_command("stream", "--checkpoint", sf_path, "--detector_checkpoint",
+                              int8_path, "--videos", video, "--output", events),
+        "pose_export": cli_command("pose_export", "--videos", video, "--output", pl,
+                                   "--detector_checkpoint", int8_path),
+        "annotate": cli_command("annotate", "--checkpoint", sf_path, "--detector_checkpoint",
+                                int8_path, "--videos", video, "--out-dir", ann, "--output",
+                                os.path.join(tmp, "fx_ann.json")),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    results = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=600)
+            results[name] = (p.returncode, so, se)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    out["consumers_s"] = time.perf_counter() - t0
+    if not has_cv2:
+        for name, (rc, _so, se) in results.items():
+            if rc == 0 or "cv2" not in se:
+                fail(f"cli.{name} without cv2 exited {rc}, expected an error naming cv2")
+        log(f"[int8] cli.quantize_detector --qat_steps 2 in {out['quantize_s']:.1f} s; no cv2: "
+            f"cli.stream, cli.pose_export and cli.annotate exit naming it")
+        return out
+    for name, (rc, _so, se) in results.items():
+        if rc != 0:
+            fail(f"cli.{name} on the int8 checkpoint exited {rc}: {se[-2000:]}")
+    with open(events) as f:
+        ev = json.load(f)
+    with open(os.path.join(pl, "Pickle_files", "Train", "fx_clip.pkl"), "rb") as f:
+        poses = pickle.load(f)
+    with open(os.path.join(tmp, "fx_ann.json")) as f:
+        summary = json.load(f)[video]
+    from cvsd_tpu_torch.data.video import _cv2
+
+    cv2 = _cv2()  # the port's import of cv2, inside the function (it may be absent)
+    cap = cv2.VideoCapture(summary["out_path"])
+    n_written = 0
+    while cap.read()[0]:
+        n_written += 1
+    cap.release()
+    out.update(stream_frames=ev["frames"], stream_events=len(ev["events"]),
+               pose_frames=len(poses), annotate_frames=summary["frames"],
+               annotate_written=n_written)
+    # the pickles hold the frames with a track (the default conf_threshold here)
+    if (ev["frames"] != INT8_CLI_FRAMES or summary["frames"] != INT8_CLI_FRAMES
+            or n_written != INT8_CLI_FRAMES or not poses
+            or not set(poses) <= set(range(1, INT8_CLI_FRAMES + 1))):
+        fail(f"the int8 consumers do not hold the video's {INT8_CLI_FRAMES} frames: {out}")
+    log(f"[int8] cli.quantize_detector --qat_steps 2 in {out['quantize_s']:.1f} s; on its int8 "
+        f"file, no --set: cli.stream {ev['frames']} frames, {len(ev['events'])} events; "
+        f"cli.pose_export {len(poses)} frames of poses; cli.annotate {n_written} frames written "
+        f"(the three together in {out['consumers_s']:.1f} s)")
+    return out
+
+
+def drive_int8(tmp: str, dev, cpu, nms_mod, dev_frames: list, bf16_phase3_ms: float,
+               card: str) -> tuple:
+    """12: the int8 detector on the card. (a) PTQ of slice 1's detector at
+    full width (BatchNorm randomised) on 256 rendered, host-letterboxed
+    frames; the int8 checkpoint through load_detector_cli -> DetectionPipeline
+    on phase 3's B=128 frames: ms/batch, frames/s, peak memory, the
+    nms_fixpoint launches (0 before, one a batch after) and the int8 GEMM
+    calls; bf16 and int8 in turns on the same frames; one batch's ConvBNAct
+    time split by stage. (b) three full-width layers and a test-size p5
+    layer, route vs plain, bit for bit; the test-size int8 forward card vs
+    CPU. (c) QAT at full width (batch 16, 16 steps in chunks of 8), the
+    act_scales unchanged, finalize_qat within TOL_QAT_FINAL; one test-size
+    float32 QAT step card vs CPU, and with TF32 (which the gradient limit
+    must fail). (d) the CLIs (``drive_int8_clis``)."""
+    from cvsd_tpu_torch.cli.common import load_detector_cli
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.data.render import render_scene, rendered_detection_batch
+    from cvsd_tpu_torch.models.detector import load_detector_checkpoint
+    import copy
+
+    from cvsd_tpu_torch.models.detector_int8 import (ConvBNAct, QuantPersonDetector,
+                                                     finalize_qat, prepare_qat, qat_model_like,
+                                                     quant_model_like, quantize_detector)
+    from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm
+    from cvsd_tpu_torch.ops.letterbox import letterbox_batch
+    from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+    from cvsd_tpu_torch.train.detector_train import anchor_centers, detection_loss
+    from cvsd_tpu_torch.train.qat import QATFineTuner
+    from cvsd_tpu_torch.utils.checkpoint import save_checkpoint
+    from cvsd_tpu_torch.utils.weights import load_flax_variables
+
+    out = {"card": card}
+    cfg = det_train_config()  # slice 1: v5m width 0.75 / depth 0.67, 640, bf16, pose head
+    S = int(cfg["detector"]["img_size"])
+    float_path = os.path.join(tmp, "det_float.msgpack")
+    save_checkpoint(float_path, randomized_detector_variables(cfg, 40),
+                    config={"detector": cfg["detector"]})
+    model, variables, _meta = load_detector_checkpoint(float_path, dev)
+
+    # (a) PTQ on rendered, host-letterboxed frames, then the int8 checkpoint's consumers
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(41)
+    u8 = (np.stack([render_scene(rng, 240, 320)[0] for _ in range(INT8_CALIB_FRAMES)])
+          * 255).round().astype(np.uint8)
+    canvas = letterbox_batch(torch.from_numpy(u8), size=S, dtype=torch.float32).numpy()
+    batches = [canvas[i:i + INT8_CALIB_BATCH] for i in range(0, len(canvas), INT8_CALIB_BATCH)]
+    out["calib_frames_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _qmodel, qvars = quantize_detector(model, variables, batches)
+    torch.cuda.synchronize()
+    out["calibrate_s"] = time.perf_counter() - t0
+    int8_path = os.path.join(tmp, "det_int8.msgpack")
+    save_checkpoint(int8_path, qvars, config={"detector": {**cfg["detector"], "quantized": True}},
+                    source=float_path, calib_frames=INT8_CALIB_FRAMES, calib_margin=1.0)
+    out["checkpoint_bytes"] = {"float": os.path.getsize(float_path),
+                               "int8": os.path.getsize(int8_path)}
+    _m, qv_read, _ = load_detector_checkpoint(int8_path, dev)
+    read = dict(flat_leaves(qv_read))
+    for k, w in flat_leaves(qvars):
+        g = read[k]
+        if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+            fail(f"the int8 checkpoint leaf {k} is not bit-equal after a read")
+    sd8, cfg8 = load_detector_cli(int8_path, get_default_config())  # no --set
+    pipe8 = DetectionPipeline(cfg8, state_dict=sd8, device=dev)
+    sd16, cfg16 = load_detector_cli(float_path, get_default_config())
+    pipe16 = DetectionPipeline(cfg16, state_dict=sd16, device=dev)
+    if not isinstance(pipe8.model, QuantPersonDetector) or cfg8["detector"].get("quantized") \
+            is not True:
+        fail("the int8 checkpoint did not build an int8 DetectionPipeline without --set")
+    n_convs = sum(isinstance(m, ConvBNAct) for m in pipe8.model.modules())
+    B = int(dev_frames[0].shape[0])
+    for p in (pipe8, pipe16):  # warm-up
+        for f in dev_frames[:2]:
+            p.detect_frames_async(f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(nms_mod)
+    int8_conv_gemm.launches = 0
+    t0 = time.perf_counter()
+    outs = [pipe8.detect_frames_async(dev_frames[i % len(dev_frames)]) for i in range(INT8_ITERS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launches(nms_mod)
+    gemm_calls = int8_conv_gemm.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host = pipe8.fetch_detections(outs[-1])
+    del outs
+    if not all(np.isfinite(h).all() for h in host) or host[4].shape != (B, 128, 17, 3):
+        fail("int8 detect outputs are not finite or have the wrong shape")
+    if counts != {"nms_fixpoint": INT8_ITERS, "nms_seq": 0, "nms_seq_multi": 0}:
+        fail(f"the int8 detect run launched the NMS kernels {counts}, expected {INT8_ITERS} "
+             f"nms_fixpoint launches and no other")
+    if gemm_calls != INT8_ITERS * n_convs:
+        fail(f"the int8 detect run made {gemm_calls} int8 GEMM calls, expected "
+             f"{INT8_ITERS} x {n_convs} ConvBNActs")
+    turns = []
+    for p in (pipe16, pipe8, pipe8, pipe16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(INT8_TURN):
+            p.detect_frames_async(dev_frames[i % len(dev_frames)])
+        torch.cuda.synchronize()
+        turns.append((time.perf_counter() - t0) / INT8_TURN * 1e3)
+    out["detect"] = {"ms_per_batch": dt / INT8_ITERS * 1e3, "frames_per_s": B * INT8_ITERS / dt,
+                     "peak_mem_gb": peak_gb, "nms_launches": counts["nms_fixpoint"],
+                     "int8_gemm_calls": gemm_calls, "conv_bn_acts": n_convs, "batch": B,
+                     "iters": INT8_ITERS, "bf16_phase3_ms_per_batch": bf16_phase3_ms,
+                     "turns_ms_bf16_int8_int8_bf16": turns}
+    log(f"[int8] {card}: calibration on {INT8_CALIB_FRAMES} rendered frames (batch "
+        f"{INT8_CALIB_BATCH}) in {out['calibrate_s']:.2f} s (frames made in "
+        f"{out['calib_frames_s']:.1f} s); checkpoint {out['checkpoint_bytes']['int8']} B "
+        f"(float {out['checkpoint_bytes']['float']} B)")
+    log(f"[int8] {card}: DetectionPipeline int8 v5m 640 pose B={B}: "
+        f"{out['detect']['ms_per_batch']:.2f} ms/batch {out['detect']['frames_per_s']:.1f} "
+        f"frames/s, peak {peak_gb:.2f} GB, nms_fixpoint launches {counts['nms_fixpoint']}, "
+        f"int8 GEMM calls {gemm_calls} ({n_convs} ConvBNActs a batch); phase 3 bf16 "
+        f"{bf16_phase3_ms:.2f} ms/batch; in turns bf16/int8/int8/bf16: "
+        + ", ".join(f"{t:.2f}" for t in turns) + " ms/batch")
+
+    # the time of one int8 batch split by stage (the ConvBNActs on their captured inputs)
+    with torch.no_grad():
+        images = letterbox_batch(dev_frames[0], size=S, dtype=pipe8.model.dtype)
+    inputs = convbnact_inputs(pipe8.model, lambda: pipe8._detect(images))
+    split = int8_split(pipe8.model, inputs)
+    split["rest"] = out["detect"]["ms_per_batch"] - sum(split.values())
+    out["split_ms"] = split
+    log(f"[int8] one B={B} batch by stage (device ms summed over {len(inputs)} ConvBNActs): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+
+    # (b) the route against its plain version on three full-width layers' real inputs
+    layers = {}
+    for name in INT8_LAYERS:
+        layers[name] = int8_layer_check(pipe8.model.get_submodule(name), inputs[name])
+        r = layers[name]
+        log(f"[int8] {name} M={r['M']} K={r['K']} N={r['N']}: route == plain "
+            f"{r['exact']} (max |gap| {r['max_abs_err']}); route {r['route_ms']:.3f} ms, plain "
+            f"(float64) {r['plain_ms']:.3f} ms, cuDNN bf16 {r['cudnn_bf16_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+        if not r["exact"]:
+            fail(f"int8 route != plain on {name}")
+    del inputs, images
+    torch.cuda.empty_cache()
+    out["layers"] = layers
+
+    # the test-size fixture: a p5 layer with M <= 16, then the forward card vs CPU
+    fx_cfg, fx_vars, fx_qvars, fx_model, fx_images = int8_fixture()
+    q_cpu = load_flax_variables(quant_model_like(fx_model), fx_qvars)
+    q_dev = copy.deepcopy(q_cpu).to(dev)
+    x_fx = torch.from_numpy(fx_images[:2])
+    ins_dev = convbnact_inputs(q_dev, lambda: q_dev(x_fx.to(dev)))
+    p5 = int8_layer_check(q_dev.get_submodule(INT8_P5_LAYER), ins_dev[INT8_P5_LAYER])
+    if not p5["exact"] or p5["M"] > 16:
+        fail(f"int8 route != plain on the test-size p5 layer (M={p5['M']})")
+    ins_cpu = convbnact_inputs(q_cpu, lambda: q_cpu(x_fx))
+    differ = total = 0
+    for name, xc in ins_cpu.items():
+        m = q_cpu.get_submodule(name)
+        a, b = quantize_input(m, xc), quantize_input(m, ins_dev[name].cpu())
+        differ += int((a != b).sum())
+        total += a.numel()
+    with torch.no_grad():
+        raw_c, raw_d = q_cpu(x_fx), q_dev(x_fx.to(dev))
+    map_gap = max(float((raw_d[k].cpu() - raw_c[k]).abs().max() / raw_c[k].abs().max())
+                  for k in raw_c)
+    share = differ / total
+    out["fixture"] = {"p5_layer": p5, "int8_share_differ": share, "int8_differ": differ,
+                      "int8_total": total, "max_map_gap": map_gap}
+    log(f"[int8] test-size p5 {INT8_P5_LAYER} M={p5['M']} (padded to 32) K={p5['K']}: route "
+        f"== plain; the fixture card vs CPU (float32): {differ} of {total} int8 activations "
+        f"differ ({share:.2e}), head maps max|card-cpu|/max|cpu| {map_gap:.2e}")
+    if share > TOL_INT8_SHARE or map_gap > TOL_INT8_MAP:
+        fail(f"the int8 fixture card vs CPU: share {share:.2e} > {TOL_INT8_SHARE} or map gap "
+             f"{map_gap:.2e} > {TOL_INT8_MAP}")
+
+    # (c) QAT at full width
+    qat_model, qat_vars = prepare_qat(model, variables, batches)
+    tuner = QATFineTuner(qat_model, qat_vars, lr=QAT_LR, total_steps=QAT_STEPS, warmup_steps=1,
+                         device=dev)
+    scales_before = {n: b.clone() for n, b in tuner.model.named_buffers()}
+    rng = np.random.default_rng(42)
+    t0 = time.perf_counter()
+    scenes = rendered_detection_batch(rng, QAT_SCENES, S)
+    render_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], 0.0
+    for _chunk in range(QAT_STEPS // QAT_CHUNK):
+        idx = rng.integers(0, QAT_SCENES, (QAT_CHUNK, QAT_BATCH))
+        chunk = [a[idx] for a in scenes]
+        t0 = time.perf_counter()
+        res = tuner.train_steps_scan(*chunk)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        losses.extend(float(v) for v in res["losses"])
+    qat_peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = [n for n, b in tuner.model.named_buffers() if not torch.equal(b, scales_before[n])]
+    serving = load_flax_variables(quant_model_like(model), finalize_qat(tuner.variables)).eval()
+    x8 = torch.from_numpy(canvas[:8]).to(dev)
+    with torch.no_grad():
+        fq, sv = tuner.model.eval()(x8), serving(x8)
+    final_gap = max(float((fq[k].float() - sv[k].float()).abs().max()
+                          / fq[k].float().abs().max()) for k in fq)
+    out["qat"] = {"steps_per_s": QAT_STEPS / step_s, "images_per_s": QAT_STEPS * QAT_BATCH
+                  / step_s, "peak_mem_gb": qat_peak, "losses": losses,
+                  "act_scales_moved": len(moved), "finalize_gap": final_gap,
+                  "render_s": render_s}
+    log(f"[int8] QAT v5m 640 bf16 batch {QAT_BATCH}: {QAT_STEPS / step_s:.2f} steps/s, peak "
+        f"{qat_peak:.2f} GB, loss {losses[0]:.3f} -> {losses[-1]:.3f} (first / last "
+        f"{QAT_CHUNK}: {np.mean(losses[:QAT_CHUNK]):.3f} / {np.mean(losses[-QAT_CHUNK:]):.3f}); "
+        f"act_scales moved: {len(moved)}; finalize_qat serving vs fake-quant max gap "
+        f"{final_gap:.2e} of the largest output")
+    if moved:
+        fail(f"QAT moved {len(moved)} act_scales: {moved[:4]}")
+    if not np.mean(losses[-QAT_CHUNK:]) < np.mean(losses[:QAT_CHUNK]):
+        fail(f"the QAT loss did not fall: {losses}")
+    if not final_gap < TOL_QAT_FINAL:
+        fail(f"finalize_qat's forward is {final_gap:.2e} off the fake-quant one")
+    del tuner, qat_model, serving, scenes
+    torch.cuda.empty_cache()
+
+    # one float32 QAT step at the test size, card vs CPU (and with TF32 on the card)
+    _qm, fx_qat_vars = prepare_qat(fx_model, fx_vars, [fx_images[:2]])
+    centers, strides = (torch.from_numpy(a) for a in anchor_centers(64))
+
+    def loss_of(m, t):
+        d = t[0].device
+        return detection_loss(m(t[0]), t[1], t[2], 64, centers.to(d), strides.to(d),
+                              gt_kpts=t[3], num_keypoints=17, obj_pos_weight=3.0,
+                              kpt_weight=0.05)[0]
+
+    step_batch = rendered_detection_batch(np.random.default_rng(43), 2, 64)
+    step = step_readings(lambda d: QATFineTuner(qat_model_like(fx_model), fx_qat_vars, lr=QAT_LR,
+                                                device=d), loss_of, step_batch, dev, cpu)
+    out["qat_step"] = step
+    f32, tf = step["f32"], step["tf32"]
+    log(f"[int8] one QAT step img64 f32 card vs CPU: loss {f32['loss']:.2e}, gradients "
+        f"{f32['grad_global']:.2e} of the largest, act_scales {f32['batch_stats']:.1e} (TF32: "
+        f"{tf['loss']:.2e}, {tf['grad_global']:.2e})")
+    if f32["loss"] > TOL_QAT_LOSS_F32 or f32["grad_global"] > TOL_QAT_GRAD_F32 \
+            or f32["batch_stats"] != 0:
+        fail(f"the QAT step card vs CPU: {f32}")
+    if tf["grad_global"] <= TOL_QAT_GRAD_F32:
+        fail(f"the QAT gradient limit {TOL_QAT_GRAD_F32} passes TF32 ({tf['grad_global']:.2e})")
+
+    # (d) the CLIs
+    out["clis"] = drive_int8_clis(tmp, fx_cfg, fx_vars, dev)
+    del pipe8, pipe16, model
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on a GPU")
@@ -2591,12 +3166,24 @@ def main() -> None:
     det_train["seconds"] = time.perf_counter() - t11
     log(f"[detector-train] phase 11 in {det_train['seconds']:.1f} s")
 
+    # -- 12. the int8 detector -----------------------------------------------------
+    t12 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_int8_")
+    try:
+        int8, int8_counts = drive_int8(tmp, dev, cpu, nms_mod, dev_frames,
+                                       detect["ms_per_batch"], card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    int8["seconds"] = time.perf_counter() - t12
+    log(f"[int8] phase 12 in {int8['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
                       "fixture_slice2": fixture2, "serve": serve, "preprocess": pre,
                       "tabular": tabular, "pipeline_a_clis": clis, "train": train,
-                      "detector_train": det_train, "seconds": time.perf_counter() - t_start}),
+                      "detector_train": det_train, "int8": int8,
+                      "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
     # main path, detect to score); the grouped kernel is on no path
@@ -2622,6 +3209,7 @@ def main() -> None:
         k["launches_serve"] = serve_counts[k["name"]]
         k["launches_preprocess"] = {run: c[k["name"]] for run, c in pre_counts.items()}
         k["launches_detector_train"] = det_train_counts[k["name"]]
+        k["launches_int8"] = int8_counts[k["name"]]
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -42,10 +42,13 @@ def resolve_config(args: argparse.Namespace) -> Dict[str, Any]:
 
 # architecture fields a detector checkpoint must dictate for the weights to
 # apply and decode correctly; runtime fields (thresholds, batch_size,
-# stream_depth, ...) stay with the session config
+# stream_depth, ...) stay with the session config. "quantized" is among them
+# here and not in the JAX package's tuple, which lacks it: an int8 checkpoint
+# then builds a float detector there unless --set detector.quantized=true is
+# given (ROADMAP.md section 3)
 _DETECTOR_ARCH_KEYS = (
     "head_variant", "num_classes", "reg_max", "width_mult", "depth_mult",
-    "img_size", "num_keypoints", "pose_head", "channel_divisor", "dtype",
+    "img_size", "num_keypoints", "pose_head", "channel_divisor", "dtype", "quantized",
 )
 
 

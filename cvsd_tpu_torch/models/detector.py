@@ -424,12 +424,17 @@ def make_detect_fn(model: PersonDetector, conf_thresh: float = 0.25, iou_thresh:
 def detector_from_config(config: Dict[str, Any]) -> PersonDetector:
     """The PersonDetector ``config['detector']`` describes, its weights not
     yet filled (under ``torch.device("meta")`` it allocates nothing: a
-    template for ``utils/weights.py``)."""
+    template for ``utils/weights.py``). With ``detector.quantized`` it is the
+    int8 serving variant, ``models/detector_int8.py::QuantPersonDetector``
+    (the checkpoints ``cli.quantize_detector`` writes), with the same
+    attributes, so every consumer runs it unchanged."""
     d = config.get("detector", {})
+    cls = PersonDetector
     if d.get("quantized"):
-        raise NotImplementedError(
-            "detector.quantized (int8) is not ported yet: ROADMAP.md, module queue: int8")
-    return PersonDetector(
+        from cvsd_tpu_torch.models.detector_int8 import QuantPersonDetector
+
+        cls = QuantPersonDetector
+    return cls(
         img_size=int(d.get("img_size", 640)),
         width_mult=float(d.get("width_mult", 0.75)),
         depth_mult=float(d.get("depth_mult", 0.67)),
@@ -446,7 +451,11 @@ def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int 
                    state_dict: Optional[Dict[str, torch.Tensor]] = None) -> PersonDetector:
     """PersonDetector from ``config['detector']`` on ``device`` (default: the
     CUDA card, raising without one), eval mode, in the configured dtype.
-    Weights from ``state_dict`` (see utils/weights.py) or seeded random."""
+    Weights from ``state_dict`` (see utils/weights.py) or seeded random.
+    The int8 variant (``detector.quantized``) keeps its int8 weights and
+    float32 scales, biases and head convs as they are (flax's dtypes) and
+    starts, without weights, from flax's initial values (``w_int8`` 0,
+    ``w_scale`` 1, ``bias`` 0, ``act_scale`` 1; the head convs seeded)."""
     from cvsd_tpu_torch.utils.weights import init_module
 
     dev = resolve_device(device)
@@ -456,10 +465,20 @@ def build_detector(config: Dict[str, Any], device: DeviceLike = None, seed: int 
         model.load_state_dict(state_dict, strict=True)
     else:
         init_module(model, seed)
+    if _is_quantized(model):
+        return model.to(device=dev).eval()
     model = model.to(device=dev, dtype=dtype).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
+
+
+def _is_quantized(model: torch.nn.Module) -> bool:
+    """The int8 detector runs NHWC and holds its int8 weight in the GEMM
+    layout: neither the dtype cast nor ``channels_last`` applies to it."""
+    from cvsd_tpu_torch.models.detector_int8 import QuantPersonDetector
+
+    return isinstance(model, QuantPersonDetector)
 
 
 def load_detector_checkpoint(path: str, device: DeviceLike = None
@@ -479,6 +498,6 @@ def load_detector_checkpoint(path: str, device: DeviceLike = None
     if model.dtype == torch.float32:
         use_float32_math()
     model = model.to(dev).eval()
-    if dev.type == "cuda":
+    if dev.type == "cuda" and not _is_quantized(model):
         model = model.to(memory_format=torch.channels_last)
     return model, variables, meta

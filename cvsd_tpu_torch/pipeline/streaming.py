@@ -8,7 +8,9 @@ k)``. ``RoundRobinReader`` builds such a reader over frame sources, filling
 each detector batch round-robin across up to ``max_streams`` live streams;
 ``VideoFileSource`` reads a video file through cv2 and ``ArraySource`` reads
 frames already in memory, so the loop runs without cv2 and gives the same
-events for the same frames.
+events for the same frames. A ``VideoFileSource``'s ``on_frame(frame_no,
+timestamp_ms, dets)`` hook, where given, fires for each of its frames as
+``run_stream`` tracks it (see ``StreamingPipeline.stream_video``).
 """
 
 from __future__ import annotations
@@ -84,8 +86,10 @@ class VideoFileSource:
     """A video file read through cv2: RGB frames and CAP_PROP_POS_MSEC stamps.
     With frame_stride N, the N-1 frames between reads are only grab()'d."""
 
-    def __init__(self, path: str, frame_stride: int = 1, name: Optional[str] = None):
+    def __init__(self, path: str, frame_stride: int = 1, name: Optional[str] = None,
+                 on_frame: Optional[Callable] = None):
         self.path = path
+        self.on_frame = on_frame
         self.name = name or path.rsplit("/", 1)[-1]
         self.frame_stride = max(1, int(frame_stride))
         self._cap = None
@@ -193,6 +197,7 @@ class RoundRobinReader:
                 "windows": {},
                 "frame_no": 0, "scale": scale, "pad": (pad_x, pad_y),
                 "name": src.name, "resolution": self.resolution,
+                "on_frame": getattr(src, "on_frame", None),
             }
             return True
         return False
@@ -295,15 +300,23 @@ class StreamingPipeline:
     def _new_window(self) -> _TrackWindow:
         return _TrackWindow(self.seq_len, self.stride, self.max_gap * self.frame_stride)
 
-    def stream_video(self, video_path: str, video_name: Optional[str] = None
-                     ) -> Iterator[ScoreEvent]:
+    def stream_video(self, video_path: str, video_name: Optional[str] = None,
+                     on_frame: Optional[Callable] = None) -> Iterator[ScoreEvent]:
         """ScoreEvents of one video: ``run_stream`` over that file alone (the
         events come once the video is done; ``run_stream``'s ``on_event``
-        fires as each is scored)."""
+        fires as each is scored).
+
+        ``on_frame(frame_no, timestamp_ms, dets)`` fires for every decoded
+        frame, in order, frame numbers from 1, with the tracked detections
+        in source pixels: ``dets`` is a list of {'track_id', 'box' (4,)
+        xyxy, 'score', 'kpts' (17, 2) or None}, ``kpts`` None where the
+        frame has no keypoints or no tracks (the annotation writer,
+        ``viz/annotate.py``, reads it)."""
         from cvsd_tpu_torch.data.video import video_info
 
         info = video_info(video_path)
-        source = VideoFileSource(video_path, self.frame_stride, name=video_name)
+        source = VideoFileSource(video_path, self.frame_stride, name=video_name,
+                                 on_frame=on_frame)
         yield from self.run_stream(
             RoundRobinReader(self, [source], (info.height, info.width), max_streams=1))
 
@@ -383,19 +396,31 @@ class StreamingPipeline:
                 st, frame_no, stamp = meta[b]
                 v = valid[b]
                 tracked = st["tracker"].update_with_indices(boxes_src[b][v], scores[b][v])
+                on_frame = st["on_frame"]
                 if kpts is None or not tracked:
+                    if on_frame is not None:
+                        on_frame(frame_no, stamp, [
+                            {"track_id": tid, "box": np.asarray(bx, np.float32),
+                             "score": float(sc), "kpts": None} for tid, bx, sc, _di in tracked])
                     continue
                 det_kpts = kpts[b][v]
                 pad_x, pad_y = st["pad"]
-                for track_id, _box, _s, di in tracked:
+                frame_dets = []
+                for track_id, box, score, di in tracked:
                     kp = det_kpts[di][:, :2].copy()
                     kp[:, 0] = (kp[:, 0] - pad_x) / st["scale"]
                     kp[:, 1] = (kp[:, 1] - pad_y) / st["scale"]
+                    if on_frame is not None:
+                        frame_dets.append({"track_id": track_id,
+                                           "box": np.asarray(box, np.float32),
+                                           "score": float(score), "kpts": kp})
                     tw = st["windows"].setdefault(track_id, self._new_window())
                     done = tw.push(kp, frame_no, stamp)
                     if done is not None:
                         pending.append({"track_id": track_id, **done})
                         pending_video.append(st["name"])
+                if on_frame is not None:
+                    on_frame(frame_no, stamp, frame_dets)
 
         inflight: deque = deque()
         score_inflight: deque = deque()

@@ -13,6 +13,9 @@ The port's modules are named after the flax auto-names (``Backbone_0``,
     params/A/out/kernel            -> A.out.weight             (h,hd,d) -> (d,h*hd)
     params/A/BatchNorm_0/scale     -> A.BatchNorm_0.weight
     batch_stats/A/BatchNorm_0/mean -> A.BatchNorm_0.running_mean   (var likewise)
+    params/A/ConvBNAct_0/w_int8     -> A.ConvBNAct_0.w_int8     HWIO -> (O, H*W*I), int8 kept
+    params/A/ConvBNAct_0/w          -> A.ConvBNAct_0.w          HWIO as is (the QAT kernel)
+    params/A/ConvBNAct_0/{w_scale,act_scale} -> the same names (float32)
 
 The conversion is strict: every flax leaf is consumed, every torch tensor is
 filled (BatchNorm's ``num_batches_tracked`` counter has no flax counterpart
@@ -37,6 +40,9 @@ import torch
 from torch import nn
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+# the int8 detector's ConvBNAct leaves (models/detector_int8.py), same names both sides
+_QUANT_LEAVES = ("w_int8", "w_scale", "act_scale", "w")
+_PARAM_LEAF.update({leaf: leaf for leaf in _QUANT_LEAVES})
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -52,6 +58,8 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
 
 def _convert_leaf(leaf: str, value: np.ndarray, target_shape: torch.Size,
                   transposed: bool = False) -> np.ndarray:
+    if leaf == "w_int8":  # HWIO -> the GEMM layout (O, H*W*I), rows in (h, w, i) order
+        return value.reshape(-1, value.shape[-1]).T
     if leaf == "kernel":
         if transposed:  # ConvTranspose HWIO -> IOHW, the kernel flipped in H and W
             return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
@@ -97,13 +105,18 @@ def flax_to_state_dict(
         if isinstance(value, torch.Tensor):  # a bfloat16 leaf read from a checkpoint
             value = value.to(torch.float32).numpy()
         owner = module.get_submodule(".".join(mod_path))
-        arr = _convert_leaf(leaf, np.asarray(value, np.float32), target[key].shape,
-                            isinstance(owner, nn.ConvTranspose2d))
+        if (target[key].dtype == torch.int8) != (np.asarray(value).dtype == np.int8):
+            raise ValueError(f"{'/'.join(path)}: dtype {np.asarray(value).dtype} does not "
+                             f"match {key} {target[key].dtype}")
+        value = np.asarray(value) if target[key].dtype == torch.int8 else np.asarray(
+            value, np.float32)
+        arr = _convert_leaf(leaf, value, target[key].shape, isinstance(owner, nn.ConvTranspose2d))
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(
                 f"{'/'.join(path)}: shape {tuple(np.shape(value))} -> {tuple(arr.shape)} "
                 f"does not match {key} {tuple(target[key].shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(target[key].dtype)
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape)).to(
+            target[key].dtype)  # ascontiguousarray makes a 0-d array 1-d
     if extra:
         raise KeyError(f"flax leaves with no torch counterpart: {extra[:8]}"
                        f"{' ...' if len(extra) > 8 else ''}")
@@ -131,6 +144,11 @@ def _to_flax_leaf(owner: nn.Module, name: str, leaf: str, value: np.ndarray,
     attention module that owns ``owner``, else None."""
     if leaf in ("running_mean", "running_var"):
         return "batch_stats", leaf[len("running_"):], value
+    if leaf == "w_int8":  # (O, H*W*I) -> HWIO
+        return "params", leaf, value.reshape(owner.features, owner.kernel, owner.kernel,
+                                             owner.cin).transpose(1, 2, 3, 0)
+    if leaf in _QUANT_LEAVES:
+        return "params", leaf, value
     qkv = heads is not None and name in ("query", "key", "value")
     if leaf == "bias":  # attention q/k/v (h*hd,) -> (h, hd)
         return "params", "bias", value.reshape(heads, -1) if qkv else value
@@ -167,12 +185,13 @@ def state_dict_to_flax(module: nn.Module, skip: Iterable[str] = ()) -> Dict[str,
         owner = module.get_submodule(owner_path)
         parent = module.get_submodule(owner_path.rpartition(".")[0])
         heads = getattr(parent, "num_heads", None) if isinstance(owner, nn.Linear) else None
-        value = tensor.detach().to(device="cpu", dtype=torch.float32).numpy()
+        value = tensor.detach().cpu()  # int8 stays int8, everything else float32
+        value = (value if value.dtype == torch.int8 else value.to(torch.float32)).numpy()
         collection, name, arr = _to_flax_leaf(owner, mod_path[-1], leaf, value, heads)
         node = out[collection]
         for part in mod_path:
             node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(arr)
+        node[name] = np.ascontiguousarray(arr).reshape(arr.shape)  # 0-d stays 0-d
     if not out["batch_stats"]:
         del out["batch_stats"]
     return out

@@ -119,7 +119,9 @@ def test_make_detect_fn_matches_jax(pair, images, raw_jax):
 
 def test_build_detector_seeded_and_unported_options():
     """Seeded builds repeat; v8dfl and flip-TTA build (tests/test_torch_v8.py
-    holds them to JAX); int8 and the plain-XLA NMS methods still raise."""
+    holds them to JAX); int8 builds the QuantPersonDetector
+    (tests/test_torch_int8.py holds it to JAX); the plain-XLA NMS methods
+    still raise."""
     cfg = {"detector": {"img_size": 64, "width_mult": 0.25, "depth_mult": 0.34,
                         "dtype": "float32", "pose_head": True}}
     a = build_detector(cfg, device="cpu", seed=3).state_dict()
@@ -128,7 +130,7 @@ def test_build_detector_seeded_and_unported_options():
     v8 = build_detector({"detector": {**cfg["detector"], "head_variant": "v8dfl"}}, device="cpu")
     assert v8.head_variant == "v8dfl" and hasattr(v8, "V8DFLHead_2")
     make_detect_fn(build_detector(cfg, device="cpu"), tta_flip=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_detector({"detector": {**cfg["detector"], "quantized": True}}, device="cpu")
+    q = build_detector({"detector": {**cfg["detector"], "quantized": True}}, device="cpu")
+    assert type(q).__name__ == "QuantPersonDetector" and q.num_keypoints == 17
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_detect_fn(build_detector(cfg, device="cpu"), nms_method="fixpoint")

@@ -47,7 +47,7 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 70
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 79
 
 
 def test_default_device_raises_without_cuda():
@@ -77,6 +77,9 @@ def test_default_device_raises_without_cuda():
         from cvsd_tpu_torch.eval.detection import evaluate_detector
         from cvsd_tpu_torch.sweep import run_sweep
         from cvsd_tpu_torch.cli import sweep, train_detector
+        from cvsd_tpu_torch.train.qat import QATFineTuner
+        from cvsd_tpu_torch.models.detector_int8 import QuantPersonDetector
+        from cvsd_tpu_torch.cli import annotate, pose_export, quantize_detector
         cfg = get_default_config()
         cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
         cpu_model = build_shopformer(cfg, device="cpu")
@@ -115,6 +118,16 @@ def test_default_device_raises_without_cuda():
             "run_sweep": lambda: run_sweep([], "no_such_dir"),
             "cli.train_detector": lambda: train_detector.main(["--images", "no_such_dir"]),
             "cli.sweep": lambda: sweep.main(["--mode", "quick"]),
+            # int8: the quantized build, the QAT tuner and the three CLIs
+            "build_detector(quantized)": lambda: build_detector(
+                {"detector": {**cfg["detector"], "quantized": True}}),
+            "QATFineTuner": lambda: QATFineTuner(
+                QuantPersonDetector(64, 0.25, 0.34, qat=True), {"params": {}}),
+            "cli.quantize_detector": lambda: quantize_detector.main(
+                ["--detector_checkpoint", "no_such.msgpack", "--output", "o.msgpack"]),
+            "cli.pose_export": lambda: pose_export.main(["--videos", "v.mp4", "--output", "o"]),
+            "cli.annotate": lambda: annotate.main(["--detector_checkpoint", "no_such.msgpack",
+                                                   "--videos", "v.mp4"]),
         }
         for name, fn in calls.items():
             try:
@@ -127,7 +140,7 @@ def test_default_device_raises_without_cuda():
     """)
     assert r.returncode == 0, r.stderr
     assert "FELL_BACK" not in r.stdout, r.stdout
-    assert r.stdout.count("RAISED") == 28, r.stdout
+    assert r.stdout.count("RAISED") == 33, r.stdout
 
 
 def test_nms_cuda_wrapper_refuses_cpu_tensors():

@@ -182,3 +182,63 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# -- the int8 detector's convolution: im2col + torch._int_mm on the card ------------------
+
+
+@pytest.mark.parametrize("B,H,W,C,N,k,s", [
+    (4, 640, 640, 3, 48, 6, 2),   # slice 1's stem at full width: K = 108 padded to 112
+    (4, 160, 160, 48, 48, 3, 1),  # a C3 bottleneck's 3x3 at full width
+    (4, 20, 20, 768, 768, 1, 1),  # the 1x1 after SPPF at full width
+    (2, 2, 2, 64, 64, 3, 1),      # a p5 map at the test size: M = 8 padded to 32
+    (1, 5, 7, 5, 12, 3, 2),       # odd sizes: K = 45 and N = 12 padded
+])
+def test_int8_conv_route_bit_exact(cuda, B, H, W, C, N, k, s):
+    """The card route's int32 accumulators equal the float64 plain version's
+    (on the card and on the CPU) bit for bit; int8_conv on a CUDA tensor
+    takes the route, never the plain version."""
+    from cvsd_tpu_torch.ops.int8_conv import int8_conv, int8_conv_gemm, int8_conv_plain
+
+    g = torch.Generator().manual_seed(H * C + k)
+    xq = torch.randint(-127, 128, (B, H, W, C), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, k * k * C), generator=g, dtype=torch.int8)
+    before = int8_conv_gemm.launches
+    got = int8_conv(xq.to(cuda), w.to(cuda), k, s)
+    torch.cuda.synchronize()
+    assert int8_conv_gemm.launches == before + 1
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, int8_conv_plain(xq.to(cuda), w.to(cuda), k, s))
+    if H <= 160:
+        assert torch.equal(got.cpu(), int8_conv_plain(xq, w, k, s))
+
+
+def test_int8_detector_forward_on_the_card(cuda):
+    """The test-sized int8 detector on the card: every ConvBNAct goes through
+    the GEMM route once a forward, and the head maps stay within 1e-3 of the
+    CPU's largest entry (float32 activations; an activation one rounding
+    apart moves a map by one quantization step)."""
+    from cvsd_tpu_torch.models.detector_int8 import ConvBNAct, QuantPersonDetector
+    from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm
+    from cvsd_tpu_torch.utils.device import use_float32_math
+
+    use_float32_math()
+    torch.manual_seed(0)
+    cpu = QuantPersonDetector(64, 0.25, 0.34, num_keypoints=17, dtype=torch.float32)
+    for m in cpu.modules():
+        if isinstance(m, ConvBNAct):
+            m.w_int8.copy_(torch.randint(-127, 128, m.w_int8.shape, dtype=torch.int8))
+            m.w_scale.fill_(1.0 / (127 * m.w_int8.shape[1] ** 0.5))
+            m.act_scale.fill_(0.02)
+    card = QuantPersonDetector(64, 0.25, 0.34, num_keypoints=17, dtype=torch.float32).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 64, 64, 3)
+    n_convs = sum(isinstance(m, ConvBNAct) for m in card.modules())
+    before = int8_conv_gemm.launches
+    with torch.no_grad():
+        got = card(x.to(cuda))
+        ref = cpu(x)
+    torch.cuda.synchronize()
+    assert int8_conv_gemm.launches == before + n_convs
+    for key, r in ref.items():
+        assert float((got[key].cpu() - r).abs().max()) <= 1e-3 * float(r.abs().max()), key

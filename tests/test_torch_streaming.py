@@ -49,12 +49,9 @@ def ekey(e):
     return (e.video, e.track_id, e.frame_end)
 
 
-@pytest.fixture(scope="module")
-def fixture(tmp_path_factory):
-    td = tmp_path_factory.mktemp("videos")
-    vids = [write_test_video(str(td / f"v{i}.mp4"), num_frames=40, width=160, height=128, seed=i)
-            for i in range(6)]
-    cfg_j, cfg_t = _config(get_default_config_jax()), _config(get_default_config())
+def _jax_pipeline():
+    """(the JAX StreamingPipeline, its detector variables, its Shopformer's)."""
+    cfg_j = _config(get_default_config_jax())
     det_j = PersonDetectorJax(img_size=64, width_mult=0.25, depth_mult=0.34, num_keypoints=17,
                               dtype=jnp.float32)
     det_vars = random_flax_variables(
@@ -62,9 +59,19 @@ def fixture(tmp_path_factory):
                            train=False), 21)
     sf_j = build_shopformer_jax(cfg_j)
     sf_vars = random_flax_variables(lambda: sf_j.init_variables(jax.random.PRNGKey(0)), 22)
-    out_j = StreamingPipelineJax(cfg_j, ShopformerScorerJax(sf_j, sf_vars, cfg_j),
-                                 detector_variables=det_vars).stream_videos_concurrent(
-        vids, max_streams=4)
+    pipe = StreamingPipelineJax(cfg_j, ShopformerScorerJax(sf_j, sf_vars, cfg_j),
+                                detector_variables=det_vars)
+    return pipe, det_vars, sf_vars
+
+
+@pytest.fixture(scope="module")
+def fixture(tmp_path_factory):
+    td = tmp_path_factory.mktemp("videos")
+    vids = [write_test_video(str(td / f"v{i}.mp4"), num_frames=40, width=160, height=128, seed=i)
+            for i in range(6)]
+    cfg_t = _config(get_default_config())
+    pipe_j, det_vars, sf_vars = _jax_pipeline()
+    out_j = pipe_j.stream_videos_concurrent(vids, max_streams=4)
 
     det_sd = flax_to_state_dict(det_vars, build_detector(cfg_t, device="cpu"))
     sf_t = build_shopformer(cfg_t, device="cpu")
@@ -147,3 +154,35 @@ def test_aggregate_events(fixture):
     assert set(agg) == {e.video for e in out_t["events"]}
     for stats in agg.values():
         assert stats["max"] >= stats["mean"]
+
+
+def test_stream_video_on_frame_matches_jax(fixture, monkeypatch):
+    """stream_video's per-frame hook against the JAX package's on one video
+    (both decoding with cv2: the reference's batcher is kept off its native
+    decoder, which fails parity on this host): every decoded frame once, in
+    order, from 1; the same track ids; boxes and keypoints in source pixels
+    within 1e-3 px (float32 detectors summing in another order; the stream
+    events above hold scores to 1e-4); ``kpts`` None in the same places; and
+    the same events as without the hook."""
+    vids, _out_j, _out_t, pipe = fixture
+    monkeypatch.setattr(VideoBatcherJax, "_native_decode_available", staticmethod(lambda: False))
+    pipe_j = _jax_pipeline()[0]
+    got, ref = [], []
+    ev_t = list(pipe.stream_video(vids[2], on_frame=lambda *a: got.append(a)))
+    ev_j = list(pipe_j.stream_video(vids[2], on_frame=lambda *a: ref.append(a)))
+    assert [f for f, _s, _d in got] == [f for f, _s, _d in ref] == list(range(1, 41))
+    assert sorted(map(ekey, ev_t)) == sorted(map(ekey, ev_j)) and ev_t
+    assert ev_t == list(pipe.stream_video(vids[2]))
+    n_dets = 0
+    for (f, st, dt), (_f, sj, dj) in zip(got, ref):
+        assert st == sj, f
+        assert [d["track_id"] for d in dt] == [d["track_id"] for d in dj], f
+        for a, b in zip(dt, dj):
+            np.testing.assert_allclose(a["box"], b["box"], atol=1e-3)
+            assert abs(a["score"] - b["score"]) <= 1e-5
+            assert (a["kpts"] is None) == (b["kpts"] is None)
+            if b["kpts"] is not None:
+                assert a["kpts"].shape == (17, 2)
+                np.testing.assert_allclose(a["kpts"], b["kpts"], atol=1e-3)
+            n_dets += 1
+    assert n_dets > 40
