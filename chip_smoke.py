@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch/CUDA port (cvsd_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 8 minutes on an H100
+    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 10 minutes on an H100
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
@@ -104,6 +104,23 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      cvsd_tpu_torch.cli.quantize_detector --qat_steps 2``, then cli.stream,
      cli.pose_export and cli.annotate on its int8 file (with cv2; without
      it each must exit naming cv2)
+  13. import and export: (a) the port's synthesize_state_dict at v5m (80
+     classes, reg_max 16, seed 0) torch.save'd and imported by ``python -m
+     cvsd_tpu_torch.cli.import_yolo`` (a subprocess): every leaf equals the
+     file's tensor bit for bit; the file through load_detector_cli into
+     SLICE2 -> DetectionPipeline on phase 3's B=128 frames (ms/batch beside
+     phase 3b's, one nms_seq launch a batch); its float32 head maps card vs
+     CPU (TF32 must fail the limit); (b) the ``--pose_head`` import through
+     cli.stream at the default config on a rendered 40-frame video (events,
+     nms_fixpoint launches; without cv2 an error naming it); (c) this
+     script's own torch mirrors of the reference Shopformers v1 (17
+     keypoints) and v2 (18), imported by ``cli.import_shopformer --variant``
+     (subprocesses), held by load_model on 1024 windows to the mirrors on the
+     card in float32 (TF32 must fail the limit), windows/s; (d) cli.export on
+     (a)'s and (c)'s v2 files; a fresh process loads both .pt2 artifacts and
+     runs the detector at B = 1, 5, 128 (nms_fixpoint launches inside the
+     artifact counted, ms/batch beside the eager path's) and the scorer;
+     keep masks equal the eager path's, boxes and scores within limits
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
      then the result line
 
@@ -116,9 +133,10 @@ TF32 from float32; the stream fixture's TF32 reading is only printed (its
 small detector moves the keypoints little either way).
 
 Kernel launch counts are set to 0 just before each detect, stream, serve,
-preprocess, detector-eval and int8 detect phase drives a pipeline and read just after (the serve
-subprocess's launches are its own; phase 7(c) counts the in-process
-server's); the launches that compare a kernel
+preprocess, detector-eval, int8 detect and phase-13 run (the imported
+detector, cli.stream, the artifact in its own process) drives a pipeline
+and read just after (the serve subprocess's launches are its own; phase
+7(c) counts the in-process server's); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
 entry point (in the reference only a test reaches it), so no phase launches
 it and its count on the main path is 0. Bounds are taken against the H100
@@ -2493,6 +2511,547 @@ def drive_int8(tmp: str, dev, cpu, nms_mod, dev_frames: list, bf16_phase3_ms: fl
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the reference's torch checkpoints in, serving artifacts out
+
+IMPORT_SEED = 0  # synthesize_state_dict's seed for the yolov5mu state dict
+IMPORT_ARCH = dict(width_mult=0.75, depth_mult=0.67, img_size=640)  # yolov5mu, as SLICE2
+SF_WINDOWS = 1024  # windows scored per Shopformer generation
+STREAM13_FRAMES = 40  # the rendered 320x240 video cli.stream reads
+EXPORT_BATCHES = (1, 5, 128)  # the exported detector's batches on phase 3's frames
+EXPORT_ITERS = 5  # timed B=128 batches, exported and eager
+# The imported reference Shopformers on the card, port against the torch
+# mirror in float32 (both with TF32 off): max |port - mirror| / max |mirror|
+# over the 1024 scores, ~10x each generation's float32 reading (v1 1.85e-07,
+# v2 1.60e-06: torch's fused encoder layer against the port's attention;
+# PERF.md); each limit must fail TF32, set after the build (v1 9.94e-05,
+# v2 4.07e-05).
+TOL_IMPORT_SCORE_F32 = {"v1": 2e-6, "v2": 2e-5}
+# The exported detector against the eager detect function with the same
+# weights and NMS on the same card: keep masks equal; boxes in px of the 640
+# canvas and scores (bf16 forward, the same kernels in both: the readings are
+# 0, PERF.md; a cuDNN algorithm that differs moves bf16 maps by far more).
+# The exported scorer against load_model's scores: TOL_SCORE_F32.
+TOL_EXPORT_BOX_PX = 1e-3
+TOL_EXPORT_SCORE = 1e-5
+
+
+class _MirrorGraphConv(torch.nn.Module):
+    def __init__(self, cin, cout, adj):
+        super().__init__()
+        self.register_buffer("adj", adj)
+        self.weight = torch.nn.Parameter(torch.randn(cin, cout) * 0.2)
+        self.bias = torch.nn.Parameter(torch.randn(cout) * 0.05)
+
+    def forward(self, x):  # (B, C, T, V)
+        b, c, t, v = x.shape
+        y = torch.matmul(self.adj, x.permute(0, 2, 3, 1).reshape(b * t, v, c))
+        return (torch.matmul(y, self.weight) + self.bias).view(b, t, v, -1).permute(0, 3, 1, 2)
+
+
+class _MirrorTemporalConv(torch.nn.Module):
+    def __init__(self, cin, cout, stride):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(cin, cout, (9, 1), (stride, 1), (4, 0))
+        self.bn = torch.nn.BatchNorm2d(cout)
+
+    def forward(self, x):
+        return self.bn(self.conv(x))
+
+
+class _MirrorBlock(torch.nn.Module):
+    def __init__(self, cin, cout, adj, stride):
+        super().__init__()
+        self.gcn = _MirrorGraphConv(cin, cout, adj)
+        self.tcn = _MirrorTemporalConv(cout, cout, stride)
+        self.residual = (torch.nn.Identity() if cin == cout and stride == 1 else
+                         torch.nn.Sequential(torch.nn.Conv2d(cin, cout, 1, (stride, 1)),
+                                             torch.nn.BatchNorm2d(cout)))
+
+    def forward(self, x):
+        return torch.relu(self.tcn(torch.relu(self.gcn(x))) + self.residual(x))
+
+
+# The reference skeletons, written out here so that the mirror does not read
+# the port's tables: COCO-17 (0 nose, 1/2 eyes, 3/4 ears, 5/6 shoulders, 7/8
+# elbows, 9/10 wrists, 11/12 hips, 13/14 knees, 15/16 ankles) for v1, and for
+# v2 the same with a neck at 17 (nose -> neck -> shoulders for nose -> shoulders).
+_MIRROR_LIMBS = ((5, 7), (7, 9), (6, 8), (8, 10), (5, 11), (6, 12), (11, 12),
+                 (11, 13), (13, 15), (12, 14), (14, 16))
+_MIRROR_EDGES = {17: ((0, 1), (0, 2), (1, 3), (2, 4), (0, 5), (0, 6)) + _MIRROR_LIMBS,
+                 18: ((0, 1), (0, 2), (1, 3), (2, 4), (0, 17), (17, 5), (17, 6)) + _MIRROR_LIMBS}
+
+
+def mirror_adjacency(V):
+    """D^-1/2 (A + I) D^-1/2 of the reference skeleton with V keypoints, float32."""
+    a = torch.eye(V, dtype=torch.float64)
+    for i, j in _MIRROR_EDGES[V]:
+        a[i, j] = a[j, i] = 1.0
+    d = a.sum(1).rsqrt()
+    return (d[:, None] * a * d[None, :]).float()
+
+
+class ReferenceShopformerMirror(torch.nn.Module):
+    """A compact torch re-implementation of the reference Shopformers, the
+    state-dict layout their training scripts save: v1 (greedy halving
+    strides, no pool, post-LN transformer with an output projection and the
+    shifted decoder target, PE added to the score target) and v2 (exact
+    strides with an adaptive pool, stock pre-LN GELU stacks with final
+    norms). It shares no code with the port's modules, the skeleton tables
+    included. Eval mode only; the score is its output."""
+
+    def __init__(self, variant, V, T=12, tokens=2, C=2, H=64, L=8, heads=2, ff=64, layers=4):
+        super().__init__()
+        self.variant, self.V, self.T = variant, V, T
+        if variant == "v1":  # halve while it stays >= tokens (12 -> 6 -> 3)
+            strides, cur = [1] * layers, T
+            for i in range(layers):
+                if cur > tokens and cur // 2 >= tokens:
+                    strides[i], cur = 2, cur // 2
+        else:  # the prime factors of T / tokens, smallest first, largest stride first
+            r, p, primes = max(T // tokens, 1), 2, []
+            while r > 1:
+                while r % p == 0:
+                    primes.append(p)
+                    r //= p
+                p += 1
+            strides = sorted((primes + [1] * layers)[:layers], reverse=True)
+        factors, cur = [1] * layers, tokens
+        for i in range(layers):
+            if cur < T and cur * 2 <= T:
+                factors[i], cur = 2, cur * 2
+        adj = mirror_adjacency(V)
+        chans = [C] + [H] * (layers - 1) + [L]
+        self.gcae = torch.nn.Module()
+        enc = self.gcae.encoder = torch.nn.Module()
+        enc.bn_input = torch.nn.BatchNorm1d(C * V)
+        enc.layers = torch.nn.ModuleList(
+            [_MirrorBlock(chans[i], chans[i + 1], adj, strides[i]) for i in range(layers)])
+        self.pool_tokens = None if variant == "v1" else tokens
+        dec = self.gcae.decoder = torch.nn.Module()
+        dec.initial_proj = torch.nn.Linear(L * V, H * V)
+        seq, outs = [], [H] * (layers - 1) + [C]
+        for i, f in enumerate(factors):
+            seq.append(torch.nn.ConvTranspose2d(H, outs[i], (f, 1), (f, 1)) if f > 1
+                       else torch.nn.Conv2d(H, outs[i], 1))
+            if i < layers - 1:
+                seq += [torch.nn.BatchNorm2d(outs[i]), torch.nn.ReLU(), torch.nn.Dropout(0.0)]
+        dec.layers = torch.nn.Sequential(*seq)
+        d = L * V
+        pos = torch.arange(100, dtype=torch.float32)[:, None]
+        div = torch.exp(torch.arange(0, d, 2).float() * (-np.log(10000.0) / d))
+        pe = torch.zeros(100, d)
+        pe[:, 0::2], pe[:, 1::2] = torch.sin(pos * div), torch.cos(pos * div)
+        self.register_buffer("pe", pe[None], persistent=False)
+        tr = self.transformer = torch.nn.Module()
+        if variant == "v1":
+            tr.encoder_layers = torch.nn.ModuleList([torch.nn.TransformerEncoderLayer(
+                d, heads, ff, 0.0, batch_first=True) for _ in range(2)])
+            tr.decoder_layers = torch.nn.ModuleList([torch.nn.TransformerDecoderLayer(
+                d, heads, ff, 0.0, batch_first=True) for _ in range(2)])
+            tr.output_proj = torch.nn.Linear(d, d)
+        else:
+            kw = dict(dropout=0.0, activation="gelu", batch_first=True, norm_first=True)
+            tr.encoder = torch.nn.TransformerEncoder(
+                torch.nn.TransformerEncoderLayer(d, heads, ff, **kw), 2,
+                norm=torch.nn.LayerNorm(d), enable_nested_tensor=False)
+            tr.decoder = torch.nn.TransformerDecoder(
+                torch.nn.TransformerDecoderLayer(d, heads, ff, **kw), 2, norm=torch.nn.LayerNorm(d))
+
+    def tokens(self, poses):  # (B, T, V, C) -> (B, n, C'*V) in the order c*V + v
+        x = poses.permute(0, 3, 1, 2)  # (B, C, T, V)
+        b, c, t, v = x.shape
+        x = self.gcae.encoder.bn_input(x.permute(0, 1, 3, 2).reshape(b, c * v, t))
+        x = x.view(b, c, v, t).permute(0, 1, 3, 2)
+        for layer in self.gcae.encoder.layers:
+            x = layer(x)
+        if self.pool_tokens is not None and x.shape[2] != self.pool_tokens:
+            x = torch.nn.functional.adaptive_avg_pool2d(x, (self.pool_tokens, v))
+        return x.permute(0, 2, 1, 3).reshape(b, x.shape[2], -1)
+
+    def forward(self, poses):
+        tok = self.tokens(poses)
+        pe = self.pe[:, :tok.shape[1]]
+        tr = self.transformer
+        if self.variant == "v1":
+            src = tok + pe
+            for layer in tr.encoder_layers:
+                src = layer(src)
+            tgt = torch.cat([torch.zeros_like(tok[:, :1]), tok[:, :-1]], 1) + pe
+            for layer in tr.decoder_layers:
+                tgt = layer(tgt, src)
+            return ((tr.output_proj(tgt) - (tok + pe)) ** 2).mean(dim=(1, 2))
+        x = tok + pe
+        return ((tr.decoder(x, tr.encoder(x)) - tok) ** 2).mean(dim=(1, 2))
+
+
+def reference_mirror(variant: str, V: int, seed: int) -> ReferenceShopformerMirror:
+    """The mirror at the reference defaults, seeded, with BatchNorm running
+    statistics randomised (so the import of mean and var does work)."""
+    torch.manual_seed(seed)
+    m = ReferenceShopformerMirror(variant, V)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                mod.running_mean.copy_(torch.from_numpy(
+                    rng.normal(0, 0.3, mod.running_mean.shape).astype(np.float32)))
+                mod.running_var.copy_(torch.from_numpy(
+                    rng.uniform(0.5, 2.0, mod.running_var.shape).astype(np.float32)))
+    return m.eval()
+
+
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+from cvsd_tpu_torch.ops import nms
+from cvsd_tpu_torch.ops.letterbox import letterbox_batch
+from cvsd_tpu_torch.serve.export import exported_device, load_exported
+
+det_path, sc_path, inputs_path, out_path, iters = sys.argv[1:6]
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+t0 = time.perf_counter()
+det, sc = load_exported(det_path), load_exported(sc_path)
+load_s = time.perf_counter() - t0
+dev = exported_device(det)
+inputs = torch.load(inputs_path)
+images = letterbox_batch(inputs["frames"].to(dev), size=int(inputs["size"]), dtype=torch.float32)
+prog, scorer = det.module(), sc.module()
+outs, launches = {}, {}
+with torch.no_grad():
+    for b in json.loads(inputs["batches"]):
+        before = nms.nms_fixpoint_cuda.launches
+        o = prog(images[:b])
+        sync()
+        launches[b] = nms.nms_fixpoint_cuda.launches - before
+        outs[b] = [t.cpu() for t in o]
+    for _ in range(2):
+        prog(images)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(int(iters)):
+        prog(images)
+    sync()
+    ms = (time.perf_counter() - t0) / int(iters) * 1e3
+    scores = scorer(inputs["poses"].to(dev)).cpu()
+torch.save({"outs": outs, "scores": scores}, out_path)
+print(json.dumps({"device": str(dev), "load_s": load_s, "ms_per_batch": ms,
+                  "launches": {str(k): v for k, v in launches.items()}}))
+"""
+
+
+def drive_import_export(tmp: str, dev, cpu, nms_mod, host_frames: list, dev_frames: list,
+                        detect_ms: float, detect2_ms: float, card: str) -> tuple:
+    """13. The reference's torch checkpoints in, serving artifacts out.
+    (a) the port's synthesize_state_dict at v5m (width 0.75, depth 0.67, 80
+    classes, reg_max 16, seed 0), torch.save'd and imported by ``python -m
+    cvsd_tpu_torch.cli.import_yolo`` (a subprocess): every leaf equals the
+    file's tensor (OIHW -> HWIO) bit for bit; load_detector_cli puts it into
+    slice 2's session config, and DetectionPipeline runs phase 3's B=128
+    frames on nms_seq.cu (one launch a batch); its float32 head maps on 2
+    frames at 640, card vs CPU, within the slice-2 limit, which TF32 fails.
+    (b) the import with --pose_head, run by cli.stream at the default config
+    (no --set) on a rendered 40-frame video: its events and nms_fixpoint
+    launches (without cv2: an error naming cv2). (c) both reference Shopformer
+    generations from this script's own torch mirrors (reference defaults,
+    BatchNorm statistics randomised), v1 saved as {'model_state_dict': ...},
+    v2 with its config, imported by ``cli.import_shopformer --variant`` (two
+    subprocesses), loaded by load_model and held on 1024 windows to the
+    mirror's eval-mode scores on the card in float32 (the limit fails TF32).
+    (d) cli.export on (a)'s checkpoint (slice 1's NMS settings) and on (c)'s
+    v2 file; a fresh subprocess loads both .pt2 files, runs the detector at
+    B = 1, 5 and 128 on phase 3's letterboxed frames with its nms_fixpoint
+    launches counted, and the scorer; both held to the eager path here."""
+    from cvsd_tpu_torch.cli import export as export_cli
+    from cvsd_tpu_torch.cli import stream as stream_cli
+    from cvsd_tpu_torch.cli.common import load_detector_cli
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.eval.evaluate import load_model
+    from cvsd_tpu_torch.models.detector import build_detector, make_detect_fn
+    from cvsd_tpu_torch.models.pose_topdown import build_pose_topdown
+    from cvsd_tpu_torch.models.shopformer import build_shopformer
+    from cvsd_tpu_torch.ops.letterbox import letterbox_batch
+    from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+    from cvsd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from cvsd_tpu_torch.utils.weights import state_dict_to_flax
+    from cvsd_tpu_torch.utils.yolo_import import build_key_map, synthesize_state_dict
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, counts = {"card": card}, {}
+    paths = {n: os.path.join(tmp, n) for n in (
+        "yolov5mu.pt", "yolov5mu.msgpack", "yolov5mu_pose.msgpack", "v1.pt", "v1.msgpack",
+        "v2.pt", "v2.msgpack", "det.pt2", "scorer.pt2", "inputs.pt", "child_out.pt",
+        "shopformer.msgpack", "clip.mp4", "events.json")}
+
+    # the four imports, as users start them, at once
+    arch = IMPORT_ARCH
+    sd = synthesize_state_dict(depth_mult=arch["depth_mult"], width_mult=arch["width_mult"],
+                               num_classes=80, reg_max=16, seed=IMPORT_SEED)
+    arch_flags = ["--img_size", str(arch["img_size"]), "--width_mult", str(arch["width_mult"]),
+                  "--depth_mult", str(arch["depth_mult"])]
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, paths["yolov5mu.pt"])
+    mirrors = {"v1": reference_mirror("v1", 17, 31), "v2": reference_mirror("v2", 18, 32)}
+    torch.save({"epoch": 1, "model_state_dict": mirrors["v1"].state_dict()}, paths["v1.pt"])
+    torch.save({"model_state_dict": mirrors["v2"].state_dict(), "config": {"model": {
+        "num_keypoints": 18, "seq_len": 12, "num_tokens": 2,
+        "gcae": {"hidden_channels": 64, "latent_channels": 8, "num_layers": 4},
+        "transformer": {"num_heads": 2, "num_layers": 2, "dim_feedforward": 64}}}},
+        paths["v2.pt"])
+    cmds = {
+        "import_yolo": cli_command("import_yolo", "--torch_checkpoint", paths["yolov5mu.pt"],
+                                   "--output", paths["yolov5mu.msgpack"], *arch_flags),
+        "import_yolo --pose_head": cli_command(
+            "import_yolo", "--torch_checkpoint", paths["yolov5mu.pt"], "--output",
+            paths["yolov5mu_pose.msgpack"], "--pose_head", *arch_flags),
+        "import_shopformer v1": cli_command("import_shopformer", "--torch_checkpoint",
+                                            paths["v1.pt"], "--variant", "v1", "--output",
+                                            paths["v1.msgpack"]),
+        "import_shopformer v2": cli_command("import_shopformer", "--torch_checkpoint",
+                                            paths["v2.pt"], "--variant", "v2", "--output",
+                                            paths["v2.msgpack"]),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=600)
+            if p.returncode != 0 or "imported" not in so:
+                fail(f"cli.{name} exited {p.returncode}: {se[-2000:]}")
+            log(f"[import] cli.{name}: {so.strip().splitlines()[-1]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    out["imports_s"] = time.perf_counter() - t0
+
+    # (a) the leaves, bit for bit; the file into slice 2's session config
+    state, meta = load_checkpoint(paths["yolov5mu.msgpack"])
+    n_leaves = 0
+    for torch_key, kind, fpath, coll in build_key_map(arch["depth_mult"]):
+        leaf = state[coll]
+        for k in fpath:
+            leaf = leaf[k]
+        want = sd[torch_key].transpose(2, 3, 1, 0) if kind == "conv_kernel" else sd[torch_key]
+        if leaf.dtype != np.float32 or not np.array_equal(leaf, want):
+            fail(f"the imported leaf {coll}/{'/'.join(fpath)} is not {torch_key}")
+        n_leaves += 1
+    cfg2 = get_default_config()
+    cfg2["detector"].update(SLICE2)
+    det_sd, cfg_imp = load_detector_cli(paths["yolov5mu.msgpack"], cfg2)  # strict
+    pipe = DetectionPipeline(cfg_imp, device=dev, state_dict=det_sd,
+                             pose_model=build_pose_topdown(cfg_imp, device=dev, seed=11))
+    B = int(dev_frames[0].shape[0])
+    for f in dev_frames[:2]:  # warm-up
+        pipe.detect_frames_async(f)
+    torch.cuda.synchronize()
+    iters = 5
+    reset_launches(nms_mod)
+    t0 = time.perf_counter()
+    outs = [pipe.detect_frames_async(dev_frames[i % len(dev_frames)]) for i in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts["yolov5mu_detect"] = launches(nms_mod)
+    host = pipe.fetch_detections(outs[-1])
+    if not all(np.isfinite(h).all() for h in host) or host[4].shape != (B, 128, 17, 3):
+        fail("the imported yolov5mu's detections are not finite or have the wrong shape")
+    if counts["yolov5mu_detect"] != {"nms_fixpoint": 0, "nms_seq": iters, "nms_seq_multi": 0}:
+        fail(f"the imported yolov5mu launched {counts['yolov5mu_detect']}, expected {iters} "
+             "nms_seq launches and no other")
+    out["yolov5mu"] = {"leaves": n_leaves, "params_file_bytes": os.path.getsize(
+        paths["yolov5mu.msgpack"]), "ms_per_batch": dt / iters * 1e3,
+        "frames_per_s": B * iters / dt, "slice2_phase3b_ms_per_batch": detect2_ms,
+        "valid_per_frame": float(host[3].sum()) / B, "nms_launches": counts["yolov5mu_detect"]}
+    log(f"[import] yolov5mu (synthesized, seed {IMPORT_SEED}) through cli.import_yolo: "
+        f"{n_leaves} leaves equal the file's tensors; in slice 2's configuration B={B}: "
+        f"{out['yolov5mu']['ms_per_batch']:.2f} ms/batch (phase 3b, random init: "
+        f"{detect2_ms:.2f}), {out['yolov5mu']['valid_per_frame']:.1f} detections per frame, "
+        f"nms launches {counts['yolov5mu_detect']} [{card}]")
+    del pipe, outs
+    torch.cuda.empty_cache()
+    # the imported head maps in float32, card vs CPU on 2 frames at 640
+    cfg32 = {**cfg_imp, "detector": {**cfg_imp["detector"], "dtype": "float32"}}
+    m_gpu = build_detector(cfg32, device=dev, state_dict=det_sd)
+    m_cpu = build_detector(cfg32, device=cpu, state_dict=det_sd)
+    S = m_gpu.img_size
+    lb = letterbox_batch(torch.from_numpy(host_frames[1][:2]), size=S, dtype=torch.float32)
+    with torch.no_grad():
+        raw_cpu, raw_gpu = m_cpu(lb), m_gpu(lb.to(dev))
+        set_tf32(True)
+        raw_tf32 = m_gpu(lb.to(dev))
+        set_tf32(False)
+    worst = worst_tf32 = 0.0
+    for name in ("p3", "p4", "p5"):
+        r = raw_cpu[name]
+        worst = max(worst, float((raw_gpu[name].cpu() - r).abs().max() / r.abs().max()))
+        worst_tf32 = max(worst_tf32, float((raw_tf32[name].cpu() - r).abs().max() / r.abs().max()))
+    out["yolov5mu"].update(raw_f32_rel_gap=worst, raw_tf32_rel_gap=worst_tf32)
+    log(f"[import] yolov5mu f32 head maps card vs CPU: max|card-cpu|/max|cpu| = {worst:.2e} "
+        f"(with TF32 {worst_tf32:.2e}; limit {TOL_RAW_V8_F32})")
+    if worst > TOL_RAW_V8_F32:
+        fail(f"the imported yolov5mu's f32 head maps card vs CPU differ by {worst:.2e}")
+    if worst_tf32 <= TOL_RAW_V8_F32:
+        fail(f"the head-map limit {TOL_RAW_V8_F32} passes TF32 ({worst_tf32:.2e})")
+    del m_gpu, m_cpu, raw_gpu, raw_tf32
+    torch.cuda.empty_cache()
+
+    # (b) the --pose_head import through cli.stream at the default config
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    sf_cfg = get_default_config()
+    save_checkpoint(paths["shopformer.msgpack"],
+                    state_dict_to_flax(build_shopformer(sf_cfg, device=dev, seed=33)),
+                    config=sf_cfg)
+    argv = ["--checkpoint", paths["shopformer.msgpack"], "--detector_checkpoint",
+            paths["yolov5mu_pose.msgpack"], "--videos", paths["clip.mp4"], "--output",
+            paths["events.json"]]
+    t0 = time.perf_counter()
+    if has_cv2:
+        from cvsd_tpu_torch.data.video import write_test_video
+
+        write_test_video(paths["clip.mp4"], num_frames=STREAM13_FRAMES, seed=13)
+        reset_launches(nms_mod)
+        stream_cli.main(argv)
+        counts["stream_pose_head"] = launches(nms_mod)
+        with open(paths["events.json"]) as f:
+            ev = json.load(f)
+        batches = -(-STREAM13_FRAMES // int(sf_cfg["detector"]["batch_size"]))
+        want = {"nms_fixpoint": batches, "nms_seq": 0, "nms_seq_multi": 0}
+        if ev["frames"] != STREAM13_FRAMES or counts["stream_pose_head"] != want:
+            fail(f"cli.stream on the --pose_head import: {ev['frames']} frames, launches "
+                 f"{counts['stream_pose_head']}, expected {STREAM13_FRAMES} and {want}")
+        out["stream_pose_head"] = {"frames": ev["frames"], "events": len(ev["events"]),
+                                   "seconds": time.perf_counter() - t0,
+                                   "nms_launches": counts["stream_pose_head"]}
+        log(f"[import] cli.stream on the --pose_head import (default config, no --set): "
+            f"{ev['frames']} frames, {len(ev['events'])} events, nms launches "
+            f"{counts['stream_pose_head']}, {out['stream_pose_head']['seconds']:.1f} s")
+    else:
+        reset_launches(nms_mod)
+        try:
+            stream_cli.main(argv)
+        except Exception as e:  # noqa: BLE001 - the error must name cv2
+            if "cv2" not in str(e):
+                fail(f"cli.stream without cv2 raised {e!r}, expected an error naming cv2")
+        else:
+            fail("cli.stream without cv2 ran, expected an error naming cv2")
+        counts["stream_pose_head"] = launches(nms_mod)
+        out["stream_pose_head"] = {"cv2": False}
+        log("[import] no cv2: cli.stream on the --pose_head import exits naming it")
+
+    # (c) both reference generations against their mirrors on the card
+    out["shopformer"] = {}
+    for variant, V in (("v1", 17), ("v2", 18)):
+        scorer = load_model(paths[f"{variant}.msgpack"], device=dev)
+        mcfg = scorer.config["model"]
+        if (mcfg["variant"], mcfg["num_keypoints"], mcfg["token_order"],
+                mcfg["gcae_decoder_variant"]) != (variant, V, "cv", "ref"):
+            fail(f"the imported {variant} file rebuilt {dict(mcfg)}")
+        poses = np.random.default_rng(40 + V).normal(size=(SF_WINDOWS, 12, V, 2)).astype(np.float32)
+        mirror = mirrors[variant].to(dev)
+        with torch.no_grad():
+            ref = mirror(torch.from_numpy(poses).to(dev)).cpu().numpy()
+        got = scorer.score(poses, batch_size=256)
+        scorer.score(poses, batch_size=256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer.score(poses, batch_size=256)
+        rate = SF_WINDOWS / (time.perf_counter() - t0)
+        set_tf32(True)
+        got_tf32 = scorer.score(poses, batch_size=256)
+        set_tf32(False)
+        gap = float(np.abs(got - ref).max() / np.abs(ref).max())
+        gap_tf32 = float(np.abs(got_tf32 - ref).max() / np.abs(ref).max())
+        out["shopformer"][variant] = {"keypoints": V, "tokens": int(
+            mirrors[variant].tokens(torch.from_numpy(poses[:1]).to(dev)).shape[1]),
+            "windows_per_s": rate, "rel_gap_f32": gap, "rel_gap_tf32": gap_tf32}
+        log(f"[import] Shopformer {variant} (V={V}) through cli.import_shopformer: "
+            f"{rate:.0f} windows/s (batches of 256); vs the torch mirror on the card "
+            f"max|port-mirror|/max|mirror| = {gap:.2e} (with TF32 {gap_tf32:.2e}; limit "
+            f"{TOL_IMPORT_SCORE_F32[variant]}) [{card}]")
+        if not np.isfinite(got).all() or gap > TOL_IMPORT_SCORE_F32[variant]:
+            fail(f"the imported {variant} scores differ from the mirror's by {gap:.2e}")
+        if gap_tf32 <= TOL_IMPORT_SCORE_F32[variant]:
+            fail(f"the {variant} import score limit {TOL_IMPORT_SCORE_F32[variant]} passes TF32 "
+                 f"({gap_tf32:.2e})")
+        mirrors[variant].cpu()
+    v2_scorer, v2_poses, v2_scores = scorer, poses, got
+
+    # (d) the artifacts: written in-process, loaded in a fresh process
+    t0 = time.perf_counter()
+    export_cli.main(["--detector_checkpoint", paths["yolov5mu.msgpack"], "--output",
+                     paths["det.pt2"]])
+    export_cli.main(["--checkpoint", paths["v2.msgpack"], "--output", paths["scorer.pt2"]])
+    export_s = time.perf_counter() - t0
+    frames = host_frames[0]
+    torch.save({"frames": torch.from_numpy(frames), "size": arch["img_size"],
+                "poses": torch.from_numpy(v2_poses), "batches": json.dumps(list(EXPORT_BATCHES))},
+               paths["inputs.pt"])
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", EXPORT_CHILD, paths["det.pt2"],
+                        paths["scorer.pt2"], paths["inputs.pt"], paths["child_out.pt"],
+                        str(EXPORT_ITERS)], cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    child_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"loading the .pt2 artifacts in a fresh process exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    got = torch.load(paths["child_out.pt"])
+    counts["exported"] = {"nms_fixpoint": sum(child["launches"].values()), "nms_seq": 0,
+                          "nms_seq_multi": 0}
+    if child["launches"] != {str(b): 1 for b in EXPORT_BATCHES}:
+        fail(f"the exported detector launched nms_fixpoint {child['launches']}, expected one "
+             "launch a call")
+    exp_sd, exp_cfg = load_detector_cli(paths["yolov5mu.msgpack"], get_default_config())
+    model = build_detector(exp_cfg, device=dev, state_dict=exp_sd)  # cli.export's detector
+    detect = make_detect_fn(model, 0.25, 0.45, 128, "pallas_fixpoint")
+    images = letterbox_batch(torch.from_numpy(frames).to(dev), size=arch["img_size"],
+                             dtype=torch.float32)
+    box_gap = score_gap = 0.0
+    for b in EXPORT_BATCHES:
+        ref = [t.cpu() for t in detect(images[:b])]
+        exp = got["outs"][b]
+        if len(exp) != len(ref) or not torch.equal(exp[2], ref[2]):
+            fail(f"the exported detector's keep mask at B={b} differs from the eager path's")
+        box_gap = max(box_gap, float((exp[0] - ref[0]).abs().max()))
+        score_gap = max(score_gap, float((exp[1] - ref[1]).abs().max()))
+    reset_launches(nms_mod)
+    for _ in range(2):
+        detect(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_ITERS):
+        detect(images)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / EXPORT_ITERS * 1e3
+    reset_launches(nms_mod)
+    sc_gap = float(np.abs(got["scores"].numpy() - v2_scores).max() / np.abs(v2_scores).max())
+    out["export"] = {"export_s": export_s, "child_s": child_s, "load_s": child["load_s"],
+                     "det_pt2_bytes": os.path.getsize(paths["det.pt2"]),
+                     "scorer_pt2_bytes": os.path.getsize(paths["scorer.pt2"]),
+                     "exported_ms_per_batch": child["ms_per_batch"], "eager_ms_per_batch": eager_ms,
+                     "batch": int(frames.shape[0]), "box_gap_px": box_gap, "score_gap": score_gap,
+                     "scorer_rel_gap": sc_gap, "nms_launches_in_artifact": child["launches"],
+                     "device": child["device"]}
+    log(f"[export] cli.export: detector {out['export']['det_pt2_bytes']} B, scorer "
+        f"{out['export']['scorer_pt2_bytes']} B in {export_s:.1f} s; a fresh process loads "
+        f"both in {child['load_s']:.1f} s ({child_s:.1f} s with its start) on {child['device']}; "
+        f"the detector at B={','.join(map(str, EXPORT_BATCHES))}: keep masks equal the eager "
+        f"path's, boxes max|d| {box_gap:.2e} px, scores {score_gap:.2e}; nms_fixpoint launches "
+        f"inside the artifact {child['launches']}; B={frames.shape[0]}: exported "
+        f"{child['ms_per_batch']:.2f} ms/batch, eager {eager_ms:.2f} (phase 3 slice 1: "
+        f"{detect_ms:.2f}); the scorer vs load_model max rel {sc_gap:.2e} [{card}]")
+    if box_gap > TOL_EXPORT_BOX_PX or score_gap > TOL_EXPORT_SCORE:
+        fail(f"the exported detector differs from the eager path: boxes {box_gap:.2e} px "
+             f"(limit {TOL_EXPORT_BOX_PX}), scores {score_gap:.2e} (limit {TOL_EXPORT_SCORE})")
+    if sc_gap > TOL_SCORE_F32:
+        fail(f"the exported scorer differs from load_model's scores by {sc_gap:.2e}")
+    del v2_scorer, model, images
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on a GPU")
@@ -2596,13 +3155,17 @@ def main() -> None:
     saved = kernel_fn.launches
     nms_ms = device_ms(lambda: kernel_fn(cand, alive_f, pipe.iou))
     call_ms = cuda_ms(lambda: kernel_fn(cand, alive_f, pipe.iou), iters=200, warmup=20)
+    # what batched_nms pays: the torch.library operator around the wrapper
+    op_call_ms = cuda_ms(lambda: torch.ops.cvsd_tpu_torch.nms_fixpoint(cand, alive_f, pipe.iou),
+                         iters=200, warmup=20)
     plain_ms = cuda_ms(lambda: nms_mod.nms_fixpoint_torch(cand, alive_f, pipe.iou), iters=20)
     lib_ms = library_nms_ms(cand, alive_f, pipe.iou)
     bound_ms, bound_by, nbytes, nops, steps = nms_bound(cand, alive_f, pipe.iou)
     n_suppressed = int((alive_b & ~keep).sum())
     log(f"[kernel] nms_fixpoint main-path B={cand.shape[0]} K={cand.shape[1]}: "
         f"{nms_ms * 1e3:.2f} us on the device (CUDA graph), {call_ms * 1e3:.2f} us per "
-        f"wrapper call (plain {plain_ms * 1e3:.1f} us, library "
+        f"wrapper call, {op_call_ms * 1e3:.2f} us per operator call (plain "
+        f"{plain_ms * 1e3:.1f} us, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}), bound {bound_ms * 1e3:.3f} us "
         f"by {bound_by} ({nbytes} B, {nops} ops; Jacobi steps max {int(steps.max())} "
         f"mean {float(steps.float().mean()):.2f}; {n_suppressed} candidates suppressed)")
@@ -2721,6 +3284,8 @@ def main() -> None:
         saved2 = launches(nms_mod)
         k_ms = device_ms(lambda: kfn(cand2, alive2, pipe2.iou))
         k_call = cuda_ms(lambda: kfn(cand2, alive2, pipe2.iou), iters=200, warmup=20)
+        o_call = (cuda_ms(lambda: torch.ops.cvsd_tpu_torch.nms_seq(cand2, alive2, pipe2.iou),
+                          iters=200, warmup=20) if kname == "nms_seq" else None)
         p_ms = cuda_ms(lambda: pfn(cand2, alive2, pipe2.iou), iters=10, warmup=2)
         lib_ms2 = library_nms_ms(cand2, alive2, pipe2.iou)
         b_ms, b_by, nbytes2, nops2 = seq_bound(cand2, alive2, ref, pipe2.iou)
@@ -2740,13 +3305,14 @@ def main() -> None:
                 f"bound {c_bound * 1e3:.3f} us by {c_by}; {int(c_keep.sum())} kept")
         for name in COUNTED:  # the timing launches are not the path's
             getattr(nms_mod, name).launches = saved2[name[:-5]]
-        seq_rows[kname] = {"max_abs_err": err, "ms": k_ms, "call_ms": k_call,
+        seq_rows[kname] = {"max_abs_err": err, "ms": k_ms, "call_ms": k_call, "op_call_ms": o_call,
                            "plain_ms": p_ms, "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": lib_ms2, "deep_cases": deep2,
                            "kept_on_main_path": int(ref.sum())}
         log(f"[kernel] {kname} slice-2 path B={cand2.shape[0]} K={cand2.shape[1]}: "
             f"{k_ms * 1e3:.2f} us on the device (CUDA graph), {k_call * 1e3:.2f} us per wrapper "
-            f"call (plain {p_ms * 1e3:.1f} us, library "
+            f"call, {'n/a' if o_call is None else f'{o_call * 1e3:.2f} us'} per operator call "
+            f"(plain {p_ms * 1e3:.1f} us, library "
             f"{'n/a' if lib_ms2 is None else f'{lib_ms2 * 1e3:.1f} us'}), bound "
             f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes2} B, {nops2} ops; {int(ref.sum())} of "
             f"{int(alive2.sum())} candidates kept)")
@@ -3177,12 +3743,24 @@ def main() -> None:
     int8["seconds"] = time.perf_counter() - t12
     log(f"[int8] phase 12 in {int8['seconds']:.1f} s")
 
+    # -- 13. the reference's torch checkpoints in, serving artifacts out --------
+    t13 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_import_export_")
+    try:
+        imp, imp_counts = drive_import_export(tmp, dev, cpu, nms_mod, host_frames, dev_frames,
+                                              detect["ms_per_batch"], detect2["ms_per_batch"],
+                                              card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    imp["seconds"] = time.perf_counter() - t13
+    log(f"[import-export] phase 13 in {imp['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
                       "fixture_slice2": fixture2, "serve": serve, "preprocess": pre,
                       "tabular": tabular, "pipeline_a_clis": clis, "train": train,
-                      "detector_train": det_train, "int8": int8,
+                      "detector_train": det_train, "int8": int8, "import_export": imp,
                       "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
@@ -3195,7 +3773,7 @@ def main() -> None:
          "source": "cvsd_tpu_torch/csrc/nms_fixpoint.cu",
          "replaces": "cvsd_tpu/ops/nms.py:248",
          "launches": stream_launches, "max_abs_err": max_abs_err,
-         "ms": nms_ms, "call_ms": call_ms,
+         "ms": nms_ms, "call_ms": call_ms, "op_call_ms": op_call_ms,
          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": lib_ms, "shape": {"B": int(cand.shape[0]), "K": int(cand.shape[1])},
          "suppressed_on_main_path": n_suppressed, "deep_cases": deep_cases},
@@ -3210,6 +3788,7 @@ def main() -> None:
         k["launches_preprocess"] = {run: c[k["name"]] for run, c in pre_counts.items()}
         k["launches_detector_train"] = det_train_counts[k["name"]]
         k["launches_int8"] = int8_counts[k["name"]]
+        k["launches_import_export"] = {run: c[k["name"]] for run, c in imp_counts.items()}
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
 """GCAE — spatio-temporal graph-convolutional autoencoder, the pose tokenizer
-(PyTorch port of ``cvsd_tpu/models/gcae.py``, the ``"tpu"`` decoder).
+(PyTorch port of ``cvsd_tpu/models/gcae.py``, both decoders).
 
 - GraphConvolution: A·X·W with a constant normalized skeleton adjacency
 - TemporalConvolution: k=9 conv along time, stride s, pad 4, + BatchNorm
@@ -10,6 +10,13 @@
 - GCAEDecoder: Dense expansion + ReLU, ``ceil(log2(seq_len/num_tokens))``
   x2 ConvTranspose + BatchNorm + ReLU along time, a resize to ``seq_len``,
   a k=9 conv back to ``in_channels``
+- reference-mirror options, which ``utils/shopformer_import.py`` sets to
+  read the reference's torch checkpoints: ``token_order="cv"`` (tokens in
+  the reference's ``c*V + v`` order), ``pool_to_tokens=False`` (v1: no
+  adaptive pool, as many tokens as the strides leave) and the decoder's
+  ``variant="ref"`` (Dense expansion, per layer a ConvTranspose k=f s=f or a
+  1x1 conv with BatchNorm + ReLU between the layers, the resize to
+  ``seq_len``)
 
 Poses are (B, T, V, C) at the public functions; the convolutions run on
 (B, C, T, V). Every BatchNorm is ``models/layers.py::FlaxBatchNorm`` (flax's
@@ -31,7 +38,7 @@ Two parts are not PyTorch's stock behaviour, and the tests hold both to JAX:
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,14 +104,19 @@ class STGCNBlock(nn.Module):
 
 
 class GCAEEncoder(nn.Module):
-    """ST-GCN encoder: (B, T, V, C) -> (B, num_tokens, V*latent) tokens."""
+    """ST-GCN encoder: (B, T, V, C) -> (B, num_tokens, V*latent) tokens
+    (``pool_to_tokens=False``: as many tokens as the strides leave)."""
 
     def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
                  num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
                  num_layers: int = 4, layout: str = "coco_with_neck",
-                 strides_override: Optional[Sequence[int]] = None, dropout: float = 0.0):
+                 strides_override: Optional[Sequence[int]] = None, dropout: float = 0.0,
+                 token_order: str = "vc", pool_to_tokens: bool = True):
         super().__init__()
+        if token_order not in ("vc", "cv"):
+            raise ValueError(f"token_order must be 'vc' or 'cv', got {token_order!r}")
         self.latent_channels = latent_channels
+        self.token_order = token_order
         self.num_tokens = num_tokens
         self.num_layers = num_layers
         adj = torch.from_numpy(normalized_skeleton_adjacency(num_keypoints, layout))
@@ -118,7 +130,8 @@ class GCAEEncoder(nn.Module):
             self.add_module(f"STGCNBlock_{i}",
                             STGCNBlock(channels[i], channels[i + 1], adj, strides[i], dropout))
             t = (t + 8 - 9) // strides[i] + 1
-        self.pool = t != num_tokens
+        self.pool = pool_to_tokens and t != num_tokens
+        self.out_tokens = num_tokens if pool_to_tokens else t
         if self.pool:
             self.register_buffer(
                 "pool_matrix", torch.from_numpy(adaptive_pool_matrix(t, num_tokens)),
@@ -131,6 +144,8 @@ class GCAEEncoder(nn.Module):
             x = getattr(self, f"STGCNBlock_{i}")(x, rng)
         if self.pool:
             x = torch.einsum("ot,btvc->bovc", self.pool_matrix, x)
+        if self.token_order == "cv":  # the reference's embedding order c*V + v
+            x = x.transpose(2, 3)
         return x.reshape(B, x.shape[1], V * self.latent_channels)
 
 
@@ -193,20 +208,106 @@ class GCAEDecoder(nn.Module):
         return self.Conv_0(x).permute(0, 2, 3, 1)
 
 
+def ref_upsample_factors(num_tokens: int, seq_len: int, num_layers: int) -> List[int]:
+    """The reference decoder's greedy x2 upsample plan: double while it stays
+    <= seq_len, one layer at a time; the resize takes the remainder."""
+    factors = [1] * num_layers
+    current = num_tokens
+    for i in range(num_layers):
+        if current < seq_len and current * 2 <= seq_len:
+            factors[i] = 2
+            current *= 2
+    return factors
+
+
+class GCAERefDecoder(nn.Module):
+    """The reference's decoder stack (``GCAEDecoder(variant="ref")`` of the
+    JAX package): tokens (B, n, V*latent) -> poses (B, seq_len, V,
+    in_channels). A Dense expansion with no activation, then per layer a
+    ConvTranspose (k=f, s=f) along time where the plan doubles, else a 1x1
+    conv, with BatchNorm + ReLU between the layers and not after the last,
+    then jax's antialiased linear resize to ``seq_len``. ``in_tokens`` is
+    the encoder's token count (v1 may feed more than ``num_tokens``): the
+    plan is the configured one and the resize takes what it leaves. Flax
+    names: Dense_0, ConvTranspose_i, Conv_i and BatchNorm_i, each type
+    counted on its own."""
+
+    def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
+                 num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
+                 num_layers: int = 4, token_order: str = "vc",
+                 in_tokens: Optional[int] = None):
+        super().__init__()
+        self.num_keypoints = num_keypoints
+        self.hidden_channels = hidden_channels
+        self.seq_len = seq_len
+        self.token_order = token_order
+        H = hidden_channels
+        self.Dense_0 = nn.Linear(latent_channels * num_keypoints, num_keypoints * H)
+        channels = [H] * (num_layers - 1) + [in_channels]
+        self.layers = []  # (conv name, BatchNorm name or None), in order
+        n_ct = n_conv = 0
+        t = num_tokens if in_tokens is None else in_tokens
+        for i, f in enumerate(ref_upsample_factors(num_tokens, seq_len, num_layers)):
+            if f > 1:  # flax ConvTranspose(k=f, s=f, "VALID") == this, kernel flipped
+                name = f"ConvTranspose_{n_ct}"
+                self.add_module(name, nn.ConvTranspose2d(H, channels[i], (f, 1), (f, 1)))
+                n_ct += 1
+            else:
+                name = f"Conv_{n_conv}"
+                self.add_module(name, nn.Conv2d(H, channels[i], 1))
+                n_conv += 1
+            bn = None
+            if i < num_layers - 1:
+                bn = f"BatchNorm_{i}"
+                self.add_module(bn, FlaxBatchNorm(channels[i]))
+            self.layers.append((name, bn))
+            t *= f
+        self.resize = t != seq_len
+        if self.resize:
+            self.register_buffer("resize_matrix", torch.from_numpy(linear_resize_matrix(t, seq_len)),
+                                 persistent=False)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, n = tokens.shape[:2]
+        V, H = self.num_keypoints, self.hidden_channels
+        x = self.Dense_0(tokens)
+        if self.token_order == "cv":  # the reference's embedding order h*V + v
+            x = x.reshape(B, n, H, V).transpose(1, 2)  # (B, H, n, V)
+        else:
+            x = x.reshape(B, n, V, H).permute(0, 3, 1, 2)
+        for name, bn in self.layers:
+            x = getattr(self, name)(x)
+            if bn is not None:
+                x = F.relu(getattr(self, bn)(x))
+        if self.resize:  # jax.image.resize "linear" along time; V stays
+            x = torch.einsum("ot,bhtv->bhov", self.resize_matrix, x)
+        return x.permute(0, 2, 3, 1)
+
+
 class GCAE(nn.Module):
     """Graph-conv autoencoder: encode -> tokens, decode -> reconstruction."""
 
     def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
                  num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
                  num_layers: int = 4, layout: str = "coco_with_neck",
-                 strides_override: Optional[Sequence[int]] = None, dropout: float = 0.0):
+                 strides_override: Optional[Sequence[int]] = None, dropout: float = 0.0,
+                 token_order: str = "vc", pool_to_tokens: bool = True,
+                 decoder_variant: str = "tpu"):
         super().__init__()
         kw = dict(in_channels=in_channels, hidden_channels=hidden_channels,
                   latent_channels=latent_channels, num_keypoints=num_keypoints,
                   seq_len=seq_len, num_tokens=num_tokens)
         self.encoder = GCAEEncoder(num_layers=num_layers, layout=layout,
-                                   strides_override=strides_override, dropout=dropout, **kw)
-        self.decoder = GCAEDecoder(**kw)
+                                   strides_override=strides_override, dropout=dropout,
+                                   token_order=token_order, pool_to_tokens=pool_to_tokens, **kw)
+        if decoder_variant == "ref":
+            self.decoder = GCAERefDecoder(num_layers=num_layers, token_order=token_order,
+                                          in_tokens=self.encoder.out_tokens, **kw)
+        elif decoder_variant == "tpu":
+            self.decoder = GCAEDecoder(**kw)
+        else:
+            raise ValueError(f"gcae_decoder_variant must be 'tpu' or 'ref', got "
+                             f"{decoder_variant!r}")
 
     def encode(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         return self.encoder(x, rng)

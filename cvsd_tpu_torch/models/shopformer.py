@@ -9,6 +9,13 @@ against the variant target, on tokens from the GCAE in eval mode under
 ``no_grad`` (the counterpart of ``stop_gradient(tokenize(train=False))``).
 The GCAE's dropout is ``model.dropout`` under v1 and 0 under v2, as in JAX.
 
+The reference-mirror options (``gcae_strides``, ``token_order``,
+``pool_to_tokens``, ``gcae_decoder_variant``, ``transformer_final_norm``,
+``ln_eps``; ``models/gcae.py``, ``models/transformer.py``) rebuild the
+reference's own architectures, whose torch checkpoints
+``utils/shopformer_import.py`` reads; the defaults are the JAX package's
+design.
+
 Weights come from a flax Shopformer through
 ``utils/weights.py::load_flax_variables`` or from a seeded
 ``torch.Generator``. ``train`` arguments set the mode of the part they
@@ -39,7 +46,8 @@ class Shopformer(nn.Module):
                  dim_feedforward: int = 64, dropout: float = 0.1, variant: str = "v2",
                  score_max_len: int = 100, gcae_strides: Optional[tuple] = None,
                  transformer_final_norm: bool = False, ln_eps: float = 1e-6,
-                 d_model_override: Optional[int] = None):
+                 d_model_override: Optional[int] = None, token_order: str = "vc",
+                 pool_to_tokens: bool = True, gcae_decoder_variant: str = "tpu"):
         super().__init__()
         self.variant = variant
         self.seq_len = seq_len
@@ -51,7 +59,9 @@ class Shopformer(nn.Module):
                          latent_channels=latent_channels, num_keypoints=num_keypoints,
                          seq_len=seq_len, num_tokens=num_tokens, num_layers=gcae_layers,
                          layout=layout, strides_override=gcae_strides,
-                         dropout=dropout if variant == "v1" else 0.0)
+                         dropout=dropout if variant == "v1" else 0.0,
+                         token_order=token_order, pool_to_tokens=pool_to_tokens,
+                         decoder_variant=gcae_decoder_variant)
         self.transformer = ShopformerTransformer(
             d_model=self.d_model, num_heads=num_heads, num_encoder_layers=num_encoder_layers,
             num_decoder_layers=num_decoder_layers, dim_feedforward=dim_feedforward,
@@ -148,12 +158,6 @@ class Shopformer(nn.Module):
     @classmethod
     def from_config(cls, config: Dict[str, Any]) -> "Shopformer":
         m = config["model"]
-        for key, default in (("token_order", "vc"), ("pool_to_tokens", True),
-                             ("gcae_decoder_variant", "tpu")):
-            if m.get(key, default) != default:
-                raise NotImplementedError(
-                    f"model.{key}={m.get(key)!r} (the reference-mirror import options) is "
-                    "not ported yet: ROADMAP.md, deferred items")
         if str(m.get("dtype", "float32")) != "float32":
             raise NotImplementedError("the port runs the Shopformer in float32 only")
         return cls(
@@ -175,6 +179,9 @@ class Shopformer(nn.Module):
             transformer_final_norm=bool(m.get("transformer_final_norm", False)),
             ln_eps=float(m.get("ln_eps", 1e-6)),
             d_model_override=(int(m["d_model"]) if m.get("d_model") else None),
+            token_order=m.get("token_order", "vc"),
+            pool_to_tokens=bool(m.get("pool_to_tokens", True)),
+            gcae_decoder_variant=m.get("gcae_decoder_variant", "tpu"),
         )
 
 

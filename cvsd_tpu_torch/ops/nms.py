@@ -8,7 +8,9 @@
    NMS, see ``nms_fixpoint_torch``) through ``csrc/nms_fixpoint.cu``;
    ``pallas_seq`` runs the sequential greedy loop through
    ``csrc/nms_seq.cu``. Each kernel runs on a CUDA tensor; a CPU tensor goes
-   through the kernel's plain PyTorch version.
+   through the kernel's plain PyTorch version. Both are reached through
+   PyTorch operators (``torch.ops.cvsd_tpu_torch.nms_fixpoint`` / ``nms_seq``),
+   which ``torch.export`` keeps in an exported program.
 3. fixed ``max_detections`` output with a validity mask
 """
 
@@ -227,20 +229,55 @@ nms_seq_cuda.launches = 0
 nms_seq_multi_cuda.launches = 0
 
 
+# The two kernels on an entry point's path as PyTorch operators, so that
+# torch.export traces through them (a ctypes launch needs data pointers,
+# which a FakeTensor has not) and an exported program calls the kernel. Each
+# op dispatches on the tensor's device: the CUDA implementation is the
+# wrapper above (its launch counter counts), the CPU one the plain version;
+# any other device has neither and raises. The fake returns the (B, K) bool
+# shape. Both look their implementation up at call time.
+
+
+@torch.library.custom_op("cvsd_tpu_torch::nms_fixpoint", mutates_args=(), device_types="cpu")
+def nms_fixpoint_op(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """Fixpoint NMS keep mask (B, K) bool of score-sorted boxes (B, K, 4)
+    float32 and alive (B, K) float32 0/1."""
+    return nms_fixpoint_torch(boxes, alive, iou_thresh)
+
+
+@nms_fixpoint_op.register_kernel("cuda")
+def _nms_fixpoint_op_cuda(boxes, alive, iou_thresh):
+    return nms_fixpoint_cuda(boxes.contiguous(), alive.contiguous(), iou_thresh)
+
+
+@torch.library.custom_op("cvsd_tpu_torch::nms_seq", mutates_args=(), device_types="cpu")
+def nms_seq_op(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """Sequential greedy keep mask (B, K) bool, inputs as ``nms_fixpoint_op``'s."""
+    return nms_seq_torch(boxes, alive, iou_thresh) > 0.5
+
+
+@nms_seq_op.register_kernel("cuda")
+def _nms_seq_op_cuda(boxes, alive, iou_thresh):
+    return nms_seq_cuda(boxes.contiguous(), alive.contiguous(), iou_thresh) > 0.5
+
+
+@nms_fixpoint_op.register_fake
+@nms_seq_op.register_fake
+def _keep_fake(boxes, alive, iou_thresh):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
 def nms_fixpoint(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45) -> torch.Tensor:
-    """Fixpoint NMS keep mask (B, K) bool: the CUDA kernel for CUDA tensors,
-    the plain PyTorch version for CPU tensors."""
-    if boxes.device.type == "cpu":
-        return nms_fixpoint_torch(boxes, alive, iou_thresh)
-    return nms_fixpoint_cuda(boxes, alive, iou_thresh)
+    """Fixpoint NMS keep mask (B, K) bool through ``nms_fixpoint_op``: the
+    CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors."""
+    return nms_fixpoint_op(boxes, alive, float(iou_thresh))
 
 
 def nms_seq(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45) -> torch.Tensor:
-    """Sequential greedy keep mask (B, K) float32 0/1: the CUDA kernel for
-    CUDA tensors, the plain PyTorch version for CPU tensors."""
-    if boxes.device.type == "cpu":
-        return nms_seq_torch(boxes, alive, iou_thresh)
-    return nms_seq_cuda(boxes, alive, iou_thresh)
+    """Sequential greedy keep mask (B, K) float32 0/1 through ``nms_seq_op``:
+    the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
+    tensors."""
+    return nms_seq_op(boxes, alive, float(iou_thresh)).to(torch.float32)
 
 
 def nms_seq_multi(boxes: torch.Tensor, alive: torch.Tensor, iou_thresh: float = 0.45,
@@ -290,10 +327,8 @@ def batched_nms(
     top_scores, top_idx, cand_boxes, init_alive = prefilter(boxes, scores, conf_thresh, pre_topk)
     K = top_scores.shape[1]
     cand = cand_boxes.to(torch.float32).contiguous()
-    if method == "pallas_seq":
-        keep = nms_seq(cand, init_alive.to(torch.float32), iou_thresh) > 0.5
-    else:
-        keep = nms_fixpoint(cand, init_alive.to(torch.float32), iou_thresh)
+    op = nms_seq_op if method == "pallas_seq" else nms_fixpoint_op
+    keep = op(cand, init_alive.to(torch.float32), float(iou_thresh))
 
     neg_inf = torch.tensor(float("-inf"), dtype=top_scores.dtype, device=top_scores.device)
     final_scores = torch.where(keep & init_alive, top_scores, neg_inf)

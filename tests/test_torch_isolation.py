@@ -154,3 +154,58 @@ def test_nms_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         nms_fixpoint_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4))
     assert nms_fixpoint_cuda.launches == before
+
+
+def test_importers_and_export_import_no_jax_or_ultralytics():
+    """The checkpoint importers, the export module and their three CLIs load
+    none of jax, flax, optax, ultralytics or cvsd_tpu."""
+    r = _run("""
+        import importlib, sys
+        for name in ("utils.yolo_import", "utils.shopformer_import", "serve.export",
+                     "cli.import_yolo", "cli.import_shopformer", "cli.export"):
+            importlib.import_module("cvsd_tpu_torch." + name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ultralytics",
+                                            "cvsd_tpu"))
+        print("BAD", bad)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+def test_import_and_export_entry_points_without_cuda(tmp_path):
+    """Without a card, the Shopformer importer and cli.export raise before
+    reading a file, as every entry point does; cli.import_yolo, a numpy
+    conversion that runs no model, writes its checkpoint on the host."""
+    r = _run(f"""
+        import numpy as np, torch
+        assert not torch.cuda.is_available()
+        from cvsd_tpu_torch.cli import export, import_shopformer, import_yolo
+        from cvsd_tpu_torch.utils.shopformer_import import import_shopformer_checkpoint
+        from cvsd_tpu_torch.utils.yolo_import import synthesize_state_dict
+        calls = {{
+            "import_shopformer_checkpoint": lambda: import_shopformer_checkpoint("no_such.pt"),
+            "cli.import_shopformer": lambda: import_shopformer.main(
+                ["--torch_checkpoint", "no_such.pt", "--output", "o.msgpack"]),
+            "cli.export(detector)": lambda: export.main(
+                ["--detector_checkpoint", "no_such.msgpack", "--output", "o.pt2"]),
+            "cli.export(scorer)": lambda: export.main(
+                ["--checkpoint", "no_such.msgpack", "--output", "o.pt2"]),
+        }}
+        for name, fn in calls.items():
+            try:
+                fn()
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), (name, e)
+                print("RAISED", name)
+            else:
+                print("FELL_BACK", name)
+        sd = synthesize_state_dict(depth_mult=0.34, width_mult=0.25)
+        torch.save({{k: torch.from_numpy(v) for k, v in sd.items()}}, r"{tmp_path}/y.pt")
+        import_yolo.main(["--torch_checkpoint", r"{tmp_path}/y.pt", "--output",
+                          r"{tmp_path}/y.msgpack", "--width_mult", "0.25", "--depth_mult", "0.34"])
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "FELL_BACK" not in r.stdout, r.stdout
+    assert r.stdout.count("RAISED") == 4, r.stdout
+    assert (tmp_path / "y.msgpack").exists()

@@ -242,3 +242,55 @@ def test_int8_detector_forward_on_the_card(cuda):
     assert int8_conv_gemm.launches == before + n_convs
     for key, r in ref.items():
         assert float((got[key].cpu() - r).abs().max()) <= 1e-3 * float(r.abs().max()), key
+
+
+@pytest.mark.parametrize("op_name", ["nms_fixpoint", "nms_seq"])
+@pytest.mark.parametrize("B,K", [(128, 256), (3, 84), (2, 1024)])
+def test_nms_ops_equal_their_kernel_wrappers(cuda, op_name, B, K):
+    """The torch.library operators launch the same kernel as the ctypes
+    wrappers (one launch each, counted) and give their masks bit for bit;
+    a non-contiguous input is made contiguous, not refused."""
+    from cvsd_tpu_torch.ops import nms
+
+    op = getattr(torch.ops.cvsd_tpu_torch, op_name)
+    wrapper = nms.nms_fixpoint_cuda if op_name == "nms_fixpoint" else nms.nms_seq_cuda
+    rng = np.random.default_rng(B * 7 + K)
+    boxes = torch.from_numpy(_boxes(rng, B, K, 100.0, 300.0)).to(cuda)
+    alive = torch.from_numpy((rng.uniform(size=(B, K)) > 0.1).astype(np.float32)).to(cuda)
+    ref = wrapper(boxes, alive, 0.45) > 0.5
+    before = wrapper.launches
+    keep = op(boxes, alive, 0.45)
+    strided = op(boxes.transpose(0, 1).contiguous().transpose(0, 1), alive, 0.45)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert keep.dtype == torch.bool and torch.equal(keep, ref) and torch.equal(strided, ref)
+
+
+def test_exported_detector_launches_nms_fixpoint(cuda, tmp_path):
+    """A detector exported on the card keeps the fixpoint kernel: the loaded
+    artifact launches nms_fixpoint.cu once a call and equals the eager detect
+    function (float32, test size)."""
+    from cvsd_tpu_torch.models.detector import PersonDetector, make_detect_fn
+    from cvsd_tpu_torch.ops import nms
+    from cvsd_tpu_torch.serve import export
+    from cvsd_tpu_torch.utils.device import use_float32_math
+    from cvsd_tpu_torch.utils.weights import init_module
+
+    use_float32_math()
+    model = init_module(PersonDetector(img_size=64, width_mult=0.25, depth_mult=0.34,
+                                       num_keypoints=17, dtype=torch.float32), 3).to(cuda).eval()
+    path = str(tmp_path / "det.pt2")
+    export.save_exported(export.export_detector(model, conf_thresh=0.0, max_detections=8), path)
+    loaded = export.load_exported(path)
+    assert export.exported_device(loaded).type == "cuda"
+    eager = make_detect_fn(model, conf_thresh=0.0, max_detections=8)
+    for b in (1, 5):
+        imgs = torch.from_numpy(np.random.default_rng(b).uniform(0, 1, (b, 64, 64, 3))
+                                .astype(np.float32))
+        before = nms.nms_fixpoint_cuda.launches
+        got = export.call_exported(loaded, imgs)
+        torch.cuda.synchronize()
+        assert nms.nms_fixpoint_cuda.launches == before + 1
+        ref = eager(imgs.to(cuda))
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
