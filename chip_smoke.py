@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch/CUDA port (cvsd_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 10 minutes on an H100
+    python3 chip_smoke.py            # needs one CUDA card and nvcc; about 13 minutes on an H100
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
   1. card and build: the card's name and power limit (nvidia-smi), the CUDA
@@ -121,6 +121,19 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      runs the detector at B = 1, 5, 128 (nms_fixpoint launches inside the
      artifact counted, ms/batch beside the eager path's) and the scorer;
      keep masks equal the eager path's, boxes and scores within limits
+  14. production: configs/streaming_production.yaml through load_config at
+     full width with seeded random weights, through run_stream on 8
+     in-memory streams of 96 320x240 frames and through
+     stream_videos_concurrent on 8 rendered videos: frames/s, cameras per
+     card at 30 fps, stage_seconds, peak memory, detector batches and
+     nms_fixpoint launches (at least one a batch), beside the slice-1 stream
+     cell's figure (without cv2, whose resize the content letterbox needs,
+     it holds the error naming cv2)
+  15. examples: examples_torch/end_to_end_synthetic.py and
+     end_to_end_pipeline_a.py as subprocesses at reduced flags
+     (EXAMPLE_FLAGS): each stage's seconds, every AUC of the results JSON
+     (finite; no bar at this size), frames/s, scored windows and the child's
+     nms_fixpoint launches (without cv2 each must exit naming cv2)
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
      then the result line
 
@@ -133,10 +146,11 @@ TF32 from float32; the stream fixture's TF32 reading is only printed (its
 small detector moves the keypoints little either way).
 
 Kernel launch counts are set to 0 just before each detect, stream, serve,
-preprocess, detector-eval, int8 detect and phase-13 run (the imported
-detector, cli.stream, the artifact in its own process) drives a pipeline
-and read just after (the serve subprocess's launches are its own; phase
-7(c) counts the in-process server's); the launches that compare a kernel
+preprocess, detector-eval, int8 detect, phase-13 run (the imported
+detector, cli.stream, the artifact in its own process) and production run
+drives a pipeline and read just after (the serve subprocess's launches are
+its own; phase 7(c) counts the in-process server's; each example of phase
+15 counts its own, in its child process); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
 entry point (in the reference only a test reaches it), so no phase launches
 it and its count on the main path is 0. Bounds are taken against the H100
@@ -2706,7 +2720,7 @@ import json, sys, time
 import torch
 from cvsd_tpu_torch.ops import nms
 from cvsd_tpu_torch.ops.letterbox import letterbox_batch
-from cvsd_tpu_torch.serve.export import exported_device, load_exported
+from cvsd_tpu_torch.serve.export import call_exported, exported_device, load_exported
 
 det_path, sc_path, inputs_path, out_path, iters = sys.argv[1:6]
 sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
@@ -2725,17 +2739,27 @@ with torch.no_grad():
         sync()
         launches[b] = nms.nms_fixpoint_cuda.launches - before
         outs[b] = [t.cpu() for t in o]
-    for _ in range(2):
-        prog(images)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(int(iters)):
-        prog(images)
-    sync()
-    ms = (time.perf_counter() - t0) / int(iters) * 1e3
+    def timed(fn, n):
+        for _ in range(2):
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    ms = timed(lambda: prog(images), int(iters))
+    # the module built once against call_exported (its cached module), per batch
+    module_ms, call_ms = {}, {}
+    for b in json.loads(inputs["batches"]):
+        n = int(iters) if b == images.shape[0] else 20
+        module_ms[b] = timed(lambda: prog(images[:b]), n)
+        call_ms[b] = timed(lambda: call_exported(det, images[:b]), n)
     scores = scorer(inputs["poses"].to(dev)).cpu()
 torch.save({"outs": outs, "scores": scores}, out_path)
 print(json.dumps({"device": str(dev), "load_s": load_s, "ms_per_batch": ms,
+                  "module_ms": module_ms, "call_exported_ms": call_ms,
                   "launches": {str(k): v for k, v in launches.items()}}))
 """
 
@@ -3025,6 +3049,16 @@ def drive_import_export(tmp: str, dev, cpu, nms_mod, host_frames: list, dev_fram
         detect(images)
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) / EXPORT_ITERS * 1e3
+    eager_at = {}
+    for b in EXPORT_BATCHES:
+        n = EXPORT_ITERS if b == frames.shape[0] else 20
+        detect(images[:b])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            detect(images[:b])
+        torch.cuda.synchronize()
+        eager_at[str(b)] = (time.perf_counter() - t0) / n * 1e3
     reset_launches(nms_mod)
     sc_gap = float(np.abs(got["scores"].numpy() - v2_scores).max() / np.abs(v2_scores).max())
     out["export"] = {"export_s": export_s, "child_s": child_s, "load_s": child["load_s"],
@@ -3033,7 +3067,8 @@ def drive_import_export(tmp: str, dev, cpu, nms_mod, host_frames: list, dev_fram
                      "exported_ms_per_batch": child["ms_per_batch"], "eager_ms_per_batch": eager_ms,
                      "batch": int(frames.shape[0]), "box_gap_px": box_gap, "score_gap": score_gap,
                      "scorer_rel_gap": sc_gap, "nms_launches_in_artifact": child["launches"],
-                     "device": child["device"]}
+                     "module_ms": child["module_ms"], "call_exported_ms": child["call_exported_ms"],
+                     "eager_ms": eager_at, "device": child["device"]}
     log(f"[export] cli.export: detector {out['export']['det_pt2_bytes']} B, scorer "
         f"{out['export']['scorer_pt2_bytes']} B in {export_s:.1f} s; a fresh process loads "
         f"both in {child['load_s']:.1f} s ({child_s:.1f} s with its start) on {child['device']}; "
@@ -3042,6 +3077,10 @@ def drive_import_export(tmp: str, dev, cpu, nms_mod, host_frames: list, dev_fram
         f"inside the artifact {child['launches']}; B={frames.shape[0]}: exported "
         f"{child['ms_per_batch']:.2f} ms/batch, eager {eager_ms:.2f} (phase 3 slice 1: "
         f"{detect_ms:.2f}); the scorer vs load_model max rel {sc_gap:.2e} [{card}]")
+    log("[export] ms a call at B = " + "; ".join(
+        f"{b}: call_exported {child['call_exported_ms'][str(b)]:.3f}, module built once "
+        f"{child['module_ms'][str(b)]:.3f}, eager {eager_at[str(b)]:.3f}" for b in EXPORT_BATCHES)
+        + f" [{card}]")
     if box_gap > TOL_EXPORT_BOX_PX or score_gap > TOL_EXPORT_SCORE:
         fail(f"the exported detector differs from the eager path: boxes {box_gap:.2e} px "
              f"(limit {TOL_EXPORT_BOX_PX}), scores {score_gap:.2e} (limit {TOL_EXPORT_SCORE})")
@@ -3049,6 +3088,249 @@ def drive_import_export(tmp: str, dev, cpu, nms_mod, host_frames: list, dev_fram
         fail(f"the exported scorer differs from load_model's scores by {sc_gap:.2e}")
     del v2_scorer, model, images
     torch.cuda.empty_cache()
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the production streaming configuration
+
+PROD_CONFIG = "configs/streaming_production.yaml"
+PROD_STREAMS = 8  # in-memory 320x240 streams of PROD_FRAMES frames (run_stream)
+PROD_FRAMES = 96
+PROD_VIDEOS = 8  # rendered mp4 videos of PROD_FRAMES frames (stream_videos_concurrent)
+STREAM_CELL_FPS = (49.5, 74.2)  # the slice-1 stream cell on an H100, PRs 2-6 (PERF.md)
+
+
+def drive_production(tmp: str, dev, nms_mod, card: str) -> tuple:
+    """14. configs/streaming_production.yaml as ``load_config`` reads it, at
+    full width (v5m 640 cap, auto_size, bf16, pose head, byte tracker,
+    frame_stride 2, content host letterbox, stream_depth 3, fetch_group 4,
+    batch 64, max_detections 32; the tok4 Shopformer at hidden 32) with
+    seeded random weights: (a) ``run_stream`` on 8 in-memory streams of 96
+    320x240 frames, as the stream cell does; (b) ``stream_videos_concurrent``
+    on 8 rendered videos of 96 frames. Each after a warm-up pass: frames/s,
+    cameras per card at 30 fps (source frames: a camera's, detected or
+    skipped at the stride), stage_seconds, peak memory, the detector
+    batches and the nms_fixpoint launches (at least one a batch). The
+    content letterbox resizes with cv2: without it, both must raise naming
+    cv2."""
+    from cvsd_tpu_torch.config import load_config
+    from cvsd_tpu_torch.data.video import write_test_video
+    from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
+    from cvsd_tpu_torch.models.shopformer import build_shopformer
+    from cvsd_tpu_torch.pipeline.streaming import ArraySource, RoundRobinReader, StreamingPipeline
+
+    if importlib.util.find_spec("yaml") is None:
+        fail(f"phase 14 reads {PROD_CONFIG} with load_config, which needs yaml: not installed")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, PROD_CONFIG))
+    d = cfg["detector"]
+    want = dict(auto_size=True, tracker="byte", frame_stride=2, host_letterbox="content",
+                stream_depth=3, fetch_group=4, batch_size=64, max_detections=32,
+                width_mult=0.75, depth_mult=0.67, img_size=640, dtype="bfloat16", pose_head=True)
+    got = {k: d.get(k) for k in want}
+    if got != want or cfg["model"]["num_tokens"] != 4 or cfg["model"]["hidden_channels"] != 32:
+        fail(f"{PROD_CONFIG} read as {got}, model {cfg['model']}")
+    if d.get("nms_method", "pallas_fixpoint") != "pallas_fixpoint":
+        fail(f"{PROD_CONFIG} sets nms_method {d['nms_method']}: expected the fixpoint kernel")
+    scorer = ShopformerScorer(build_shopformer(cfg, device=dev, seed=40), cfg, device=dev)
+    spipe = StreamingPipeline(cfg, scorer, device=dev, seed=41)
+    batches = [0]
+    full = spipe.detection._full
+
+    def counted_full(*a):  # one call per detector batch
+        batches[0] += 1
+        return full(*a)
+
+    spipe.detection._full = counted_full
+    streams = {f"p{i}": render_frames(PROD_FRAMES, 320, 240, seed=140 + i)
+               for i in range(PROD_STREAMS)}
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    out = {"config": PROD_CONFIG, "cv2": has_cv2, "detector": got,
+           "model": {k: cfg["model"][k] for k in ("num_tokens", "hidden_channels")}}
+    counts = {}
+    if not has_cv2:
+        try:
+            spipe.run_stream(RoundRobinReader(spipe, [ArraySource("w", streams["p0"])],
+                                              (240, 320), 4))
+        except ImportError as e:
+            log(f"[production] no cv2 here: the content letterbox raised {e!r}")
+            out["raised"] = repr(e)
+            return out, counts
+        fail("the production configuration streamed without cv2, whose resize its content "
+             "letterbox needs")
+
+    source_frames = PROD_STREAMS * PROD_FRAMES  # a camera's frames, detected or skipped
+
+    def measured(tag: str, run) -> dict:
+        torch.cuda.synchronize()
+        spipe._stage_seconds = {"read": 0.0, "detect": 0.0, "track": 0.0, "score": 0.0}
+        torch.cuda.reset_peak_memory_stats()
+        batches[0] = 0
+        reset_launches(nms_mod)
+        t0 = time.perf_counter()
+        frames, events, stages = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = launches(nms_mod)
+        fps = source_frames / dt
+        res = {"source_frames": source_frames, "frames_read": frames, "events": len(events),
+               "seconds": dt, "frames_per_s": fps,
+               "cameras_per_card_at_30fps": fps / 30.0, "stage_seconds": stages,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "detector_batches": batches[0], "nms_launches": c}
+        log(f"[production] {tag}: {source_frames} source frames ({frames} read at frame_stride "
+            f"{spipe.frame_stride}), {len(events)} events, {fps:.1f} source frames/s = "
+            f"{fps / 30.0:.2f} cameras at 30 fps (the slice-1 stream cell: "
+            f"{STREAM_CELL_FPS[0]}-{STREAM_CELL_FPS[1]} frames/s), stages "
+            f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, peak "
+            f"{res['peak_mem_gb']:.2f} GB, {batches[0]} detector batches, nms launches {c} "
+            f"[{card}]")
+        if not events or not all(np.isfinite(e.score) for e in events):
+            fail(f"the production configuration ({tag}) produced no (finite) events")
+        if batches[0] == 0 or c["nms_fixpoint"] < batches[0] or c["nms_seq"] or \
+                c["nms_seq_multi"]:
+            fail(f"the production configuration ({tag}) ran {batches[0]} detector batches with "
+                 f"NMS launches {c}: expected at least one nms_fixpoint launch a batch")
+        counts[tag] = c
+        return res
+
+    def in_memory():
+        reader = RoundRobinReader(spipe, [ArraySource(n, f, frame_stride=spipe.frame_stride)
+                                          for n, f in streams.items()], (240, 320), PROD_STREAMS)
+        events = spipe.run_stream(reader)
+        return reader.n_frames, events, dict(spipe._stage_seconds)
+
+    spipe.run_stream(RoundRobinReader(spipe, [ArraySource("w", streams["p0"],
+                                                          frame_stride=spipe.frame_stride)],
+                                      (240, 320), 4))
+    out["run_stream"] = measured("run_stream", in_memory)
+
+    videos = [write_test_video(os.path.join(tmp, f"prod{i}.mp4"), num_frames=PROD_FRAMES,
+                               seed=150 + i) for i in range(PROD_VIDEOS)]
+    spipe.stream_videos_concurrent(videos[:1], max_streams=PROD_VIDEOS)  # warm-up
+
+    def from_files():
+        r = spipe.stream_videos_concurrent(videos, max_streams=PROD_VIDEOS)
+        return r["frames"], r["events"], r["stage_seconds"]
+
+    out["stream_videos_concurrent"] = measured("stream_videos_concurrent", from_files)
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the end-to-end examples
+
+EXAMPLE_CHILD = r"""
+import json, runpy, sys
+from cvsd_tpu_torch.ops import nms
+
+script = sys.argv[1]
+sys.argv = [script] + sys.argv[2:]
+try:
+    runpy.run_path(script, run_name="__main__")
+finally:
+    print("NMS_LAUNCHES " + json.dumps({"nms_fixpoint": nms.nms_fixpoint_cuda.launches,
+                                        "nms_seq": nms.nms_seq_cuda.launches,
+                                        "nms_seq_multi": nms.nms_seq_multi_cuda.launches}),
+          flush=True)
+"""
+# reduced flags, each example 1-2 minutes on an H100 (at 400 detector and 600 pose
+# steps the synthetic chain took 179 s; at 120 detector steps Pipeline A's
+# detector found no one in the anomalous videos, so its CSV was never
+# written); no AUC bar at this size
+EXAMPLE_FLAGS = {
+    "end_to_end_synthetic.py": ["--steps", "250", "--pose-steps", "300", "--train-videos", "16",
+                                "--test-videos", "16", "--epochs", "10"],
+    "end_to_end_pipeline_a.py": ["--videos-per-class", "8", "--test-per-class", "8",
+                                 "--det-steps", "300", "--epochs", "10"],
+}
+
+
+def run_example(script: str, flags: list, tmp: str) -> tuple:
+    """One example as a subprocess on the card (launches counted in the
+    child): (results JSON, stage seconds, launches, wall seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, script.split(".")[0])
+    args = ["--out", out]
+    artifact = os.path.join(out, "e2e_results.json")
+    if "pipeline_a" in script:
+        artifact = os.path.join(tmp, "pipeline_a_results.json")
+        args += ["--artifact", artifact]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", EXAMPLE_CHILD,
+                        os.path.join(root, "examples_torch", script), *flags, *args],
+                       cwd=root, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"examples_torch/{script} exited {r.returncode}: {r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    stages = json.loads(next(x for x in lines if x.startswith("stage_seconds "))[14:])
+    counts = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
+    with open(artifact) as f:
+        return json.load(f), stages, counts, wall
+
+
+def aucs_of(res: dict) -> dict:
+    """Every AUC in an example's results JSON, by its path."""
+    found = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else str(k))
+        elif isinstance(node, (int, float)) and not path.endswith("_ci") and (
+                "auc" in path.rsplit(".", 1)[-1] or path.startswith("video_metrics.")):
+            found[path] = float(node)  # video_metrics: the offline video AUCs by aggregation
+
+    walk({k: v for k, v in res.items() if k != "videos"}, "")
+    return found
+
+
+def drive_examples(tmp: str, card: str) -> tuple:
+    """15. Both examples_torch chains as subprocesses on the card at
+    EXAMPLE_FLAGS (each 1-2 minutes): each stage's seconds, every AUC of
+    the results JSON, frames/s and the nms_fixpoint launches in the child.
+    Fails on a non-finite AUC, no scored windows or no launches; no AUC bar
+    at this size. Without cv2 each must exit naming cv2."""
+    out, counts = {"cv2": importlib.util.find_spec("cv2") is not None}, {}
+    if not out["cv2"]:
+        root = os.path.dirname(os.path.abspath(__file__))
+        for script in EXAMPLE_FLAGS:
+            r = subprocess.run([sys.executable, os.path.join(root, "examples_torch", script),
+                                "--out", os.path.join(tmp, "x")], cwd=root, capture_output=True,
+                               text=True, timeout=300)
+            if r.returncode == 0 or "cv2" not in r.stderr:
+                fail(f"examples_torch/{script} without cv2 exited {r.returncode}: "
+                     f"{r.stderr[-500:]}")
+        log("[examples] no cv2 here: both examples exit naming cv2")
+        return out, counts
+    for script, flags in EXAMPLE_FLAGS.items():
+        res, stages, c, wall = run_example(script, flags, tmp)
+        aucs = aucs_of(res)
+        if "synthetic" in script:
+            scored = res["streaming"]["max"]["n_events"]
+            fps = res["fps"]
+        else:
+            scored = res["test_windows"]
+            pre = res["preprocess"]
+            fps = sum(v["frames"] for v in pre.values()) / max(
+                sum(v["seconds"] for v in pre.values()), 1e-9)
+        name = script.split(".")[0]
+        out[name] = {"flags": " ".join(flags), "stage_seconds": stages, "seconds": wall,
+                     "aucs": aucs, "frames_per_s": fps, "scored": scored, "nms_launches": c}
+        counts[name] = c
+        log(f"[examples] {script} {' '.join(flags)}: {wall:.1f} s, stages "
+            f"{json.dumps({k: round(v, 2) for k, v in stages.items()})}; AUCs "
+            f"{json.dumps({k: round(v, 4) for k, v in aucs.items()})}; {fps:.1f} frames/s "
+            f"({'streaming' if 'synthetic' in script else 'preprocess'}); {scored} scored "
+            f"windows; nms launches {c} [{card}]")
+        if not aucs or not all(np.isfinite(v) for v in aucs.values()):
+            fail(f"examples_torch/{script}: an AUC is missing or not finite: {aucs}")
+        if scored <= 0:
+            fail(f"examples_torch/{script} scored no windows")
+        if c["nms_fixpoint"] <= 0:
+            fail(f"examples_torch/{script} launched nms_fixpoint no time: {c}")
     return out, counts
 
 
@@ -3755,12 +4037,33 @@ def main() -> None:
     imp["seconds"] = time.perf_counter() - t13
     log(f"[import-export] phase 13 in {imp['seconds']:.1f} s")
 
+    # -- 14. the production streaming configuration ------------------------------
+    t14 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_production_")
+    try:
+        prod, prod_counts = drive_production(tmp, dev, nms_mod, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    prod["seconds"] = time.perf_counter() - t14
+    log(f"[production] phase 14 in {prod['seconds']:.1f} s")
+
+    # -- 15. the end-to-end examples -----------------------------------------------
+    t15 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_examples_")
+    try:
+        examples, example_counts = drive_examples(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    examples["seconds"] = time.perf_counter() - t15
+    log(f"[examples] phase 15 in {examples['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
                       "fixture_slice2": fixture2, "serve": serve, "preprocess": pre,
                       "tabular": tabular, "pipeline_a_clis": clis, "train": train,
                       "detector_train": det_train, "int8": int8, "import_export": imp,
+                      "production": prod, "examples": examples,
                       "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
@@ -3789,6 +4092,8 @@ def main() -> None:
         k["launches_detector_train"] = det_train_counts[k["name"]]
         k["launches_int8"] = int8_counts[k["name"]]
         k["launches_import_export"] = {run: c[k["name"]] for run, c in imp_counts.items()}
+        k["launches_production"] = {run: c[k["name"]] for run, c in prod_counts.items()}
+        k["launches_examples"] = {run: c[k["name"]] for run, c in example_counts.items()}
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

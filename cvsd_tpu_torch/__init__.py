@@ -8,3 +8,5 @@ imports torch and never jax or cvsd_tpu.
 """
 
 __version__ = "0.1.0"
+
+from cvsd_tpu_torch.config import Config, load_config, merge_configs, validate_config  # noqa: F401,E402

@@ -235,3 +235,8 @@ class ShopformerTransformer(nn.Module):
             ln_eps=float(m.get("ln_eps", 1e-6)),
             dropout=float(m.get("dropout", 0.1)),
         )
+
+
+def build_transformer(config: Dict[str, Any]) -> ShopformerTransformer:
+    """Factory, the counterpart of ``cvsd_tpu/models/transformer.py::build_transformer``."""
+    return ShopformerTransformer.from_config(config)

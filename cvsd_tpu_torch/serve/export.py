@@ -25,6 +25,7 @@ batch is 2; the program then runs at batch 1 and at every other size up to
 
 from __future__ import annotations
 
+import weakref
 from typing import Any
 
 import numpy as np
@@ -32,6 +33,12 @@ import torch
 from torch import nn
 
 MAX_BATCH = 4096
+
+# one runnable module per loaded program: ``ExportedProgram.module()`` builds
+# a fresh GraphModule at every call; weak keys, so the cache keeps no
+# artifact alive
+_MODULES: "weakref.WeakKeyDictionary[torch.export.ExportedProgram, nn.Module]" = (
+    weakref.WeakKeyDictionary())
 
 
 class _Serving(nn.Module):
@@ -117,11 +124,28 @@ def exported_device(exported: torch.export.ExportedProgram) -> torch.device:
     return torch.device("cpu")
 
 
+def _module(exported: torch.export.ExportedProgram) -> nn.Module:
+    """The program's runnable module, built once per program."""
+    mod = _MODULES.get(exported)
+    if mod is None:
+        mod = _MODULES[exported] = exported.module()
+    return mod
+
+
 def call_exported(exported: torch.export.ExportedProgram, *args: Any) -> Any:
     """Run an artifact: numpy arrays or tensors go to its device as float32;
-    the outputs are tensors on that device."""
+    the outputs are tensors on that device. A batch larger than
+    ``MAX_BATCH`` runs in chunks of at most ``MAX_BATCH``, each output
+    concatenated along its batch dimension."""
     dev = exported_device(exported)
     inputs = [torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
               .to(device=dev, dtype=torch.float32) for a in args]
+    mod = _module(exported)
+    b = inputs[0].shape[0]
     with torch.no_grad():
-        return exported.module()(*inputs)
+        if b <= MAX_BATCH:
+            return mod(*inputs)
+        parts = [mod(*[x[i: i + MAX_BATCH] for x in inputs]) for i in range(0, b, MAX_BATCH)]
+    if isinstance(parts[0], torch.Tensor):  # the scorer's scores
+        return torch.cat(parts)
+    return type(parts[0])(torch.cat(leaves) for leaves in zip(*parts))  # the detector's tuple

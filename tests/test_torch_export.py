@@ -129,6 +129,52 @@ def test_export_scorer_matches_eager_and_jax(tmp_path):
         np.testing.assert_allclose(got.numpy(), ref, **TOL_POSE_SCORE)
 
 
+def _test_scorer():
+    cfg = get_default_config()
+    cfg["model"]["hidden_channels"] = 8
+    model = init_module(Shopformer.from_config(cfg), 6, xavier=True)
+    return ShopformerScorer(model, cfg, device="cpu")
+
+
+def test_call_exported_builds_one_module(monkeypatch):
+    """Two calls on one program build its module once (the reference's
+    ``exported.call`` reuses its compiled program), and give eager's scores."""
+    scorer = _test_scorer()
+    exp = export.export_scorer(scorer)
+    built = []
+    module = torch.export.ExportedProgram.module
+    monkeypatch.setattr(torch.export.ExportedProgram, "module",
+                        lambda self, *a, **k: built.append(1) or module(self, *a, **k))
+    for b in (3, 5):
+        poses = np.random.default_rng(b).normal(size=(b, 12, 18, 2)).astype(np.float32)
+        got = export.call_exported(exp, poses)
+        with torch.no_grad():
+            assert torch.equal(got, scorer.model.compute_anomaly_score(torch.from_numpy(poses)))
+    assert len(built) == 1
+
+
+def test_call_exported_beyond_max_batch():
+    """A batch above the artifact's cap runs in chunks of at most
+    ``MAX_BATCH`` and equals eager at that batch (the reference's artifacts
+    take any batch): bit for bit against eager on the same chunks, and to
+    float32 rounding against one eager call on the whole batch (the CPU's
+    GEMM blocking follows the batch: eager at B and at B - 3 differ by an
+    ulp)."""
+    scorer = _test_scorer()
+    exp = export.export_scorer(scorer)
+    b = export.MAX_BATCH + 3
+    poses = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(b, 12, 18, 2)).astype(np.float32))
+    got = export.call_exported(exp, poses)
+    assert got.shape == (b,)
+    score = scorer.model.compute_anomaly_score
+    with torch.no_grad():
+        chunks = torch.cat([score(poses[:export.MAX_BATCH]), score(poses[export.MAX_BATCH:])])
+        whole = score(poses)
+    assert torch.equal(got, chunks)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), **TOL_POSE_SCORE)
+
+
 def test_export_cli(tmp_path, capsys):
     """cli.export writes both artifacts on the CPU; each loads and runs at
     batch 1 and 3 as the checkpoint's eager model does; tpu is refused."""

@@ -1,8 +1,9 @@
-"""The port stands alone: no module of cvsd_tpu_torch, and nothing
-chip_smoke.py imports, loads jax, flax or cvsd_tpu, nor msgpack, cv2, yaml
-or pandas, which the card machine may lack; and the entry points' default device (the
-CUDA card) raises when there is none, with no silent CPU fallback. Checked
-in fresh subprocesses: this test process has JAX loaded by conftest.py."""
+"""The port stands alone: no module of cvsd_tpu_torch, no script of
+examples_torch/ and nothing chip_smoke.py imports loads jax, flax or
+cvsd_tpu, nor msgpack, cv2, yaml or pandas, which the card machine may
+lack; and the entry points' default device (the CUDA card) raises when
+there is none, with no silent CPU fallback. Checked in fresh subprocesses:
+this test process has JAX loaded by conftest.py."""
 
 import os
 import subprocess
@@ -35,6 +36,12 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
             # an optional yardstick (torchvision) that is not installed is skipped
             if importlib.util.find_spec(name.split(".")[0]) is not None:
                 importlib.import_module(name)
+        # the end-to-end examples, imported as modules (main is not run)
+        import glob
+        for path in sorted(glob.glob("examples_torch/*.py")):
+            spec = importlib.util.spec_from_file_location("ex_" + path[15:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            print("EXAMPLE", path)
         # msgpack, cv2, yaml and pandas may be absent on the card machine:
         # the port imports them (cv2, yaml, pandas) only inside the functions
         # that need them
@@ -47,6 +54,7 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
+    assert r.stdout.count("EXAMPLE examples_torch/") == len(list(REPO.glob("examples_torch/*.py")))
     assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 79
 
 

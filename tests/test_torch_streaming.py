@@ -3,6 +3,8 @@ dryrun phase-3 fixture of __graft_entry__.py on one device (6 rendered
 videos x 40 frames at 160x128 through 4 concurrent streams; img 64, conf 0.0,
 max_det 2, float32, pose head, Shopformer hidden 8)."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,13 +12,14 @@ import pytest
 import torch
 
 from cvsd_tpu.config import get_default_config as get_default_config_jax
+from cvsd_tpu.config import load_config as load_config_jax
 from cvsd_tpu.data.video import VideoBatcher as VideoBatcherJax
 from cvsd_tpu.data.video import write_test_video
 from cvsd_tpu.eval.evaluate import ShopformerScorer as ShopformerScorerJax
 from cvsd_tpu.models.detector import PersonDetector as PersonDetectorJax
 from cvsd_tpu.models.shopformer import build_shopformer as build_shopformer_jax
 from cvsd_tpu.pipeline.streaming import StreamingPipeline as StreamingPipelineJax
-from cvsd_tpu_torch.config import get_default_config
+from cvsd_tpu_torch.config import get_default_config, load_config
 from cvsd_tpu_torch.data.video import VideoBatcher
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
 from cvsd_tpu_torch.models.detector import build_detector
@@ -49,9 +52,9 @@ def ekey(e):
     return (e.video, e.track_id, e.frame_end)
 
 
-def _jax_pipeline():
+def _jax_pipeline(cfg_j=None):
     """(the JAX StreamingPipeline, its detector variables, its Shopformer's)."""
-    cfg_j = _config(get_default_config_jax())
+    cfg_j = _config(get_default_config_jax()) if cfg_j is None else cfg_j
     det_j = PersonDetectorJax(img_size=64, width_mult=0.25, depth_mult=0.34, num_keypoints=17,
                               dtype=jnp.float32)
     det_vars = random_flax_variables(
@@ -186,3 +189,43 @@ def test_stream_video_on_frame_matches_jax(fixture, monkeypatch):
                 np.testing.assert_allclose(a["kpts"], b["kpts"], atol=1e-3)
             n_dets += 1
     assert n_dets > 40
+
+
+PRODUCTION = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "streaming_production.yaml")
+
+
+def test_production_config_events_match_jax(tmp_path, monkeypatch):
+    """configs/streaming_production.yaml in both packages, cut to the test
+    size by ``_config`` (its detector keys ``auto_size``, ``tracker: byte``,
+    ``frame_stride: 2``, ``host_letterbox: content``, ``stream_depth: 3``,
+    ``fetch_group: 4`` and ``model.num_tokens: 4`` kept), on 4 videos made as
+    the fixture's: the same event keys, frames and stamps; scores within
+    1e-4, the fixture's limit (the largest gap found on the CPU: 5.72e-06)."""
+    cfg_t = _config(load_config(PRODUCTION))
+    cfg_j = _config(load_config_jax(PRODUCTION))
+    det = cfg_t["detector"]
+    assert (det["auto_size"], det["tracker"], det["frame_stride"], det["host_letterbox"],
+            det["stream_depth"], det["fetch_group"], cfg_t["model"]["num_tokens"]) == (
+        True, "byte", 2, "content", 3, 4, 4)
+    monkeypatch.setattr(VideoBatcherJax, "_native_decode_available", staticmethod(lambda: False))
+    vids = [write_test_video(str(tmp_path / f"v{i}.mp4"), num_frames=40, width=160, height=128,
+                             seed=i) for i in range(4)]
+    pipe_j, det_vars, sf_vars = _jax_pipeline(cfg_j)
+    out_j = pipe_j.stream_videos_concurrent(vids, max_streams=4)
+    sf_t = build_shopformer(cfg_t, device="cpu")
+    sf_t.load_state_dict(flax_to_state_dict(sf_vars, sf_t))
+    pipe = StreamingPipeline(cfg_t, ShopformerScorer(sf_t, cfg_t, device="cpu"),
+                             detector_state_dict=flax_to_state_dict(
+                                 det_vars, build_detector(cfg_t, device="cpu")),
+                             device="cpu")
+    out_t = pipe.stream_videos_concurrent(vids, max_streams=4)
+    ev_j, ev_t = out_j["events"], out_t["events"]
+    assert len(ev_t) > 10
+    assert sorted(map(ekey, ev_t)) == sorted(map(ekey, ev_j))
+    ref = {ekey(e): e for e in ev_j}
+    for e in ev_t:
+        r = ref[ekey(e)]
+        assert e.frames == r.frames and e.timestamp_ms == r.timestamp_ms, ekey(e)
+        assert abs(e.score - r.score) < 1e-4, ekey(e)
+    assert out_t["frames"] == out_j["frames"] == 80  # 4 x 40 frames at frame_stride 2
