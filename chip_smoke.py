@@ -134,8 +134,18 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      (EXAMPLE_FLAGS): each stage's seconds, every AUC of the results JSON
      (finite; no bar at this size), frames/s, scored windows and the child's
      nms_fixpoint launches (without cv2 each must exit naming cv2)
-  6. the phase numbers (JSON, one line), the kernel list (JSON, one line),
-     then the result line
+  16. parallel: a one-rank NCCL group and its mesh on the card; the meshed
+     DetectionPipeline at full width on phase 3's frames bit-equal to the
+     unmeshed one (one nms_fixpoint launch a batch, ms per batch both ways);
+     the production configuration streamed meshed == unmeshed; a
+     full-width DetectorTrainer step and paper.yaml Shopformer steps meshed
+     == unmeshed bit for bit; ``python -m cvsd_tpu_torch.parallel.dryrun
+     4`` on the CPU; the compile cache cold (nvcc) and warm (no nvcc) in
+     two subprocesses; the quantize CLI's calibration from the float32 and
+     the once-cast module, in turns
+  6. the phase numbers (JSON, one line), the kernel list (JSON, one line,
+     with each kernel's launches in every counted run, ``launches_parallel``
+     included), then the result line
 
 The port runs float32 as float32: building a float32 entry point turns
 TF32 off (``utils/device.py::use_float32_math``), so the serve subprocess
@@ -147,8 +157,8 @@ small detector moves the keypoints little either way).
 
 Kernel launch counts are set to 0 just before each detect, stream, serve,
 preprocess, detector-eval, int8 detect, phase-13 run (the imported
-detector, cli.stream, the artifact in its own process) and production run
-drives a pipeline and read just after (the serve subprocess's launches are
+detector, cli.stream, the artifact in its own process), production run and
+phase-16 meshed run drives a pipeline and read just after (the serve subprocess's launches are
 its own; phase 7(c) counts the in-process server's; each example of phase
 15 counts its own, in its child process); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
@@ -3334,6 +3344,277 @@ def drive_examples(tmp: str, card: str) -> tuple:
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the parallel layer (a one-rank NCCL mesh on the card)
+
+PAR_ITERS = 10  # B=128 detect batches, meshed and unmeshed, of phase 3's frames
+PAR_STREAMS = 4  # in-memory 320x240 streams of PROD_FRAMES frames, production config
+PAR_SF_WINDOWS = 512  # synthetic windows for the paper.yaml Shopformer steps
+PAR_SF_STEPS = 8  # stage-1 micro-steps (two optimizer updates at grad_accum 4), then 4 stage-2
+CALIB_BATCHES = 4  # fault 2: the quantize CLI's synthetic calibration, batches of 16 at 640
+CACHE_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+import cvsd_tpu_torch.cli.common  # noqa: F401 (enables CVSD_COMPILE_CACHE_DIR at import)
+from cvsd_tpu_torch.ops import nms
+from cvsd_tpu_torch.utils import cuda_build
+if sys.argv[1] == "warm":
+    def no_nvcc():
+        raise RuntimeError("nvcc started on a warm compile cache")
+    cuda_build.nvcc_path = no_nvcc
+t_import = time.perf_counter() - t0
+g = torch.Generator(device="cuda").manual_seed(0)
+xy = torch.rand(2, 64, 2, device="cuda", generator=g) * 100
+boxes = torch.cat([xy, xy + 20], -1).contiguous()
+keep = nms.nms_fixpoint_cuda(boxes, torch.ones(2, 64, device="cuda"), 0.45)
+torch.cuda.synchronize()
+print("CACHE " + json.dumps({"to_first_launch_s": time.perf_counter() - t0,
+                             "import_s": t_import, "kept": int(keep.sum()),
+                             "build_dir": str(cuda_build.BUILD_DIR),
+                             "library": str(cuda_build.library_path("nms_fixpoint"))}))
+"""
+
+
+def _same_tree(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple:
+    """16. The parallel layer on the card (one card: a one-rank NCCL group;
+    NCCL refuses two ranks on one device, and gloo's CUDA all_gather is not
+    what the meshed pipeline calls, so no two-rank group runs here). (a)
+    The group and its MeshConfig (cuda:0). (b) The meshed DetectionPipeline
+    at full width (v5m 640 bf16 pose head) on phase 3's B=128 frames:
+    outputs bit-equal to the unmeshed pipeline's, one nms_fixpoint launch a
+    batch, ms per batch both ways in turns. (c) The production configuration
+    through StreamingPipeline with the mesh: the unmeshed run's events. (d)
+    One full-width DetectorTrainer step and paper.yaml Shopformer steps
+    (both stages, augmentation and dropout on) meshed against unmeshed: bit
+    for bit. (e) ``python -m cvsd_tpu_torch.parallel.dryrun 4`` on the CPU
+    as a subprocess. (f) The compile cache: nvcc into a fresh
+    CVSD_COMPILE_CACHE_DIR in one subprocess, then a second one loads the
+    library without nvcc (nvcc made to fail there): each one's time from
+    its start to its first kernel launch. (g) Fault 2: cli.quantize_detector's
+    calibration from load_detector_checkpoint's float32 module (the CLI
+    before) and from the once-cast module (after), three each in turns,
+    with the same int8 variables."""
+    import torch.distributed as dist
+
+    from cvsd_tpu_torch.cli.quantize_detector import _calibration_model, _synthetic_batches
+    from cvsd_tpu_torch.config import get_default_config, load_config
+    from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
+    from cvsd_tpu_torch.models.detector import (build_detector, detector_from_config,
+                                                load_detector_checkpoint)
+    from cvsd_tpu_torch.models.detector_int8 import quantize_detector
+    from cvsd_tpu_torch.models.shopformer import build_shopformer
+    from cvsd_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+    from cvsd_tpu_torch.pipeline.streaming import ArraySource, RoundRobinReader, StreamingPipeline
+    from cvsd_tpu_torch.train.detector_train import DetectorTrainer
+    from cvsd_tpu_torch.train.loop import Trainer
+    from cvsd_tpu_torch.utils.checkpoint import save_checkpoint
+    from cvsd_tpu_torch.utils.weights import state_dict_to_flax
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, counts = {}, {}
+    # -- (a) a one-rank NCCL group and its mesh --------------------------------
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mc = MeshConfig(build_mesh((1,), ("data",)))
+        out["group"] = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+                        "device": str(mc.device), "mesh": list(mc.mesh.mesh.shape),
+                        "two_ranks_on_one_card": "not run: NCCL refuses two ranks on one "
+                                                 "device; the pipeline's all_gather on CUDA "
+                                                 "tensors is not gloo's"}
+        log(f"[parallel] (a) {json.dumps(out['group'])}")
+        if mc.device != torch.device("cuda", 0) or dist.get_backend() != "nccl":
+            fail(f"the one-rank NCCL mesh put its rank on {mc.device} ({dist.get_backend()})")
+
+        # -- (b) the meshed DetectionPipeline at full width --------------------
+        cfg = get_default_config()
+        cfg["detector"]["pose_head"] = True
+        state = build_detector(cfg, device=dev, seed=70).state_dict()
+        plain = DetectionPipeline(cfg, state_dict=state, device=dev)
+        meshed = DetectionPipeline(cfg, state_dict=state, mesh_config=mc)
+        for p in (plain, meshed):  # warm-up
+            p.fetch_detections(p.detect_frames_async(dev_frames[0]))
+        times = {"unmeshed": [], "meshed": []}
+        outs = {}
+        for tag in ("unmeshed", "meshed", "meshed", "unmeshed"):
+            p = meshed if tag == "meshed" else plain
+            torch.cuda.synchronize()
+            reset_launches(nms_mod)
+            t0 = time.perf_counter()
+            res = [p.detect_frames_async(dev_frames[i % 4]) for i in range(PAR_ITERS)]
+            torch.cuda.synchronize()
+            times[tag].append((time.perf_counter() - t0) / PAR_ITERS * 1e3)
+            c = launches(nms_mod)
+            if tag == "meshed":
+                counts["detect"] = c
+            if c != {"nms_fixpoint": PAR_ITERS, "nms_seq": 0, "nms_seq_multi": 0}:
+                fail(f"[parallel] {tag} detect launched {c}: expected one nms_fixpoint a batch")
+            outs[tag] = [p.fetch_detections(r) for r in res[:4]]
+        for a, b in zip(outs["meshed"], outs["unmeshed"]):
+            for x, y in zip(a, b):
+                if x.shape != y.shape or not np.array_equal(x, y):
+                    fail("the meshed DetectionPipeline at world size 1 is not bit-equal to the "
+                         "unmeshed one")
+        out["detect"] = {"ms_per_batch": {k: v for k, v in times.items()}, "batch": 128,
+                         "iters": PAR_ITERS, "nms_launches": counts["detect"],
+                         "bit_equal": True}
+        log(f"[parallel] (b) detect v5m 640 bf16 pose B=128, ms/batch in turns: unmeshed "
+            f"{times['unmeshed']}, meshed {times['meshed']}; bit-equal; nms launches "
+            f"{counts['detect']} [{card}]")
+
+        # -- (c) the production configuration with the mesh ------------------------
+        pcfg = load_config(os.path.join(root, PROD_CONFIG))
+        scorer = ShopformerScorer(build_shopformer(pcfg, device=dev, seed=72), pcfg, device=dev)
+        dstate = build_detector(pcfg, device=dev, seed=73).state_dict()
+        streams = {f"m{i}": render_frames(PROD_FRAMES, 320, 240, seed=170 + i)
+                   for i in range(PAR_STREAMS)}
+        events = {}
+        for tag, m in (("unmeshed", None), ("meshed", mc)):
+            sp = StreamingPipeline(pcfg, scorer, detector_state_dict=dstate, device=dev,
+                                   mesh_config=m)
+            sp.run_stream(RoundRobinReader(sp, [ArraySource("w", streams["m0"],  # warm-up
+                                                            frame_stride=sp.frame_stride)],
+                                           (240, 320), PAR_STREAMS))
+            reader = RoundRobinReader(sp, [ArraySource(n, f, frame_stride=sp.frame_stride)
+                                           for n, f in streams.items()], (240, 320), PAR_STREAMS)
+            torch.cuda.synchronize()
+            reset_launches(nms_mod)
+            t0 = time.perf_counter()
+            ev = sp.run_stream(reader)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            events[tag] = sorted((e.video, e.track_id, e.frame_end, e.score) for e in ev)
+            c = launches(nms_mod)
+            if m is not None:
+                counts["stream"] = c
+            out[f"stream_{tag}"] = {"events": len(ev), "seconds": dt, "nms_launches": c}
+        if not events["meshed"] or events["meshed"] != events["unmeshed"]:
+            fail(f"the meshed production stream's {len(events['meshed'])} events are not the "
+                 f"unmeshed run's {len(events['unmeshed'])}")
+        if counts["stream"]["nms_fixpoint"] <= 0:
+            fail(f"the meshed production stream launched no nms_fixpoint: {counts['stream']}")
+        log(f"[parallel] (c) {PROD_CONFIG}, {PAR_STREAMS} x {PROD_FRAMES} frames: "
+            f"{len(events['meshed'])} events meshed == unmeshed; meshed "
+            f"{out['stream_meshed']['seconds']:.2f} s, unmeshed "
+            f"{out['stream_unmeshed']['seconds']:.2f} s; nms launches {counts['stream']} [{card}]")
+
+        # -- (d) training steps meshed against unmeshed ------------------------------
+        from cvsd_tpu_torch.data.render import rendered_scene_batch
+
+        dcfg = det_train_config()
+        scenes = rendered_scene_batch(np.random.default_rng(74), DET_BATCH, dcfg["detector"]["img_size"])
+        det = {}
+        for tag, m in (("unmeshed", None), ("meshed", mc)):
+            tr = DetectorTrainer(detector_from_config(dcfg), lr=1e-3, seed=75, device=dev,
+                                 mesh_config=m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.train_step(*scenes)["loss"]
+            torch.cuda.synchronize()
+            det[tag] = (loss, {k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+                        time.perf_counter() - t0)
+        if det["meshed"][0] != det["unmeshed"][0] or not _same_tree(det["meshed"][1],
+                                                                     det["unmeshed"][1]):
+            fail(f"the meshed DetectorTrainer step (loss {det['meshed'][0]}) is not bit-equal to "
+                 f"the unmeshed one ({det['unmeshed'][0]})")
+        sf = {}
+        for tag, m in (("unmeshed", None), ("meshed", mc)):
+            scfg = paper_config([f"data.synthetic.num_train={PAR_SF_WINDOWS}",
+                                 f"data.synthetic.num_test={PAR_SF_WINDOWS // 4}",
+                                 f"experiment.checkpoint_dir={os.path.join(tmp, 'sf_' + tag)}"])
+            tr = Trainer(scfg, verbose=False, device=dev, mesh_config=m).setup()
+            batches = list(tr.datamodule.train_batches(epoch=1))
+            losses = []
+            for stage, n in ((1, PAR_SF_STEPS), (2, PAR_SF_STEPS // 2)):
+                opt = tr.make_optimizer(stage)
+                for i in range(n):
+                    b = batches[i % len(batches)]
+                    losses.append(float(tr.train_step(
+                        stage, opt, torch.from_numpy(b["poses"]).to(dev),
+                        torch.from_numpy(b["mask"]).to(dev), 100003 + i)))
+            sf[tag] = (losses, {k: v.detach().clone() for k, v in tr.model.state_dict().items()})
+        if sf["meshed"][0] != sf["unmeshed"][0] or not _same_tree(sf["meshed"][1],
+                                                                   sf["unmeshed"][1]):
+            fail(f"the meshed paper.yaml Shopformer steps (losses {sf['meshed'][0]}) are not "
+                 f"bit-equal to the unmeshed ones ({sf['unmeshed'][0]})")
+        out["train"] = {"detector_step": {"loss": det["meshed"][0], "bit_equal": True,
+                                          "seconds": {k: v[2] for k, v in det.items()}},
+                        "shopformer_steps": {"losses": sf["meshed"][0], "bit_equal": True}}
+        log(f"[parallel] (d) full-width DetectorTrainer step (batch {DET_BATCH}) loss "
+            f"{det['meshed'][0]:.6f} and {len(sf['meshed'][0])} paper.yaml Shopformer "
+            f"micro-steps meshed == unmeshed bit for bit [{card}]")
+    finally:
+        dist.destroy_process_group()
+
+    # -- (e) the dry run on 4 gloo processes of the CPU ------------------------------
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cvsd_tpu_torch.parallel.dryrun", "4"], cwd=root,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+                       text=True, timeout=600)
+    line = next((x for x in r.stdout.splitlines() if x.startswith("dryrun_multichip(4)")), "")
+    if r.returncode != 0 or not line.endswith(" OK"):
+        fail(f"python -m cvsd_tpu_torch.parallel.dryrun 4 exited {r.returncode}: "
+             f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    out["dryrun"] = {"line": line, "seconds": time.perf_counter() - t0}
+    log(f"[parallel] (e) {line} ({out['dryrun']['seconds']:.1f} s)")
+
+    # -- (f) the compile cache, cold then warm ------------------------------------------
+    cache = tempfile.mkdtemp(prefix="cvsd_compile_cache_", dir=tmp)
+    runs = {}
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", CACHE_CHILD, tag], cwd=root,
+                           env={**os.environ, "CVSD_COMPILE_CACHE_DIR": cache},
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"the {tag} compile-cache child exited {r.returncode}: {r.stderr[-2000:]}")
+        runs[tag] = json.loads(next(x for x in r.stdout.splitlines()
+                                    if x.startswith("CACHE "))[6:])
+        runs[tag]["process_s"] = time.perf_counter() - t0
+    if not runs["cold"]["library"].startswith(os.path.realpath(cache)) or \
+            runs["warm"]["library"] != runs["cold"]["library"]:
+        fail(f"the compile cache did not hold the library: {runs}")
+    out["compile_cache"] = runs
+    log(f"[parallel] (f) compile cache: cold {runs['cold']['to_first_launch_s']:.2f} s to the "
+        f"first launch (nvcc into the cache), warm {runs['warm']['to_first_launch_s']:.2f} s "
+        f"(no nvcc); imports {runs['cold']['import_s']:.2f} / {runs['warm']['import_s']:.2f} s "
+        f"[{card}]")
+
+    # -- (g) fault 2: the quantize CLI's calibration, before and after --------------------
+    qcfg = get_default_config()
+    qcfg["detector"]["pose_head"] = True
+    path = os.path.join(tmp, "det_bf16.msgpack")
+    save_checkpoint(path, state_dict_to_flax(build_detector(qcfg, device=dev, seed=76)),
+                    config={"detector": dict(qcfg["detector"])})
+    batches = _synthetic_batches(int(qcfg["detector"]["img_size"]), 16, CALIB_BATCHES)
+    calib = {"before": [], "after": []}
+    scales = {}
+    for tag in ("before", "after", "after", "before", "before", "after"):
+        model, variables, _meta = (load_detector_checkpoint(path, dev) if tag == "before"
+                                   else _calibration_model(path, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _q, qv = quantize_detector(model, variables, batches)
+        torch.cuda.synchronize()
+        calib[tag].append(time.perf_counter() - t0)
+        scales[tag] = {k: np.asarray(v) for k, v in flat_leaves(qv)}
+        del model, _q
+    if scales["before"].keys() != scales["after"].keys() or not all(
+            np.array_equal(scales["before"][k], scales["after"][k]) for k in scales["before"]):
+        fail("the once-cast calibration module gives other int8 variables than the float32 one")
+    out["quantize_calibration_s"] = calib
+    log(f"[parallel] (g) fault 2: quantize_detector calibration on {CALIB_BATCHES} x 16 "
+        f"frames at 640, seconds in turns: float32 module (before) {calib['before']}, once-cast "
+        f"bf16 module (after) {calib['after']}; int8 variables equal [{card}]")
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on a GPU")
@@ -4057,13 +4338,23 @@ def main() -> None:
     examples["seconds"] = time.perf_counter() - t15
     log(f"[examples] phase 15 in {examples['seconds']:.1f} s")
 
+    # -- 16. the parallel layer ----------------------------------------------------------
+    t16 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_parallel_")
+    try:
+        par, par_counts = drive_parallel(tmp, dev, nms_mod, dev_frames, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    par["seconds"] = time.perf_counter() - t16
+    log(f"[parallel] phase 16 in {par['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
                       "fixture_slice2": fixture2, "serve": serve, "preprocess": pre,
                       "tabular": tabular, "pipeline_a_clis": clis, "train": train,
                       "detector_train": det_train, "int8": int8, "import_export": imp,
-                      "production": prod, "examples": examples,
+                      "production": prod, "examples": examples, "parallel": par,
                       "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
@@ -4094,6 +4385,7 @@ def main() -> None:
         k["launches_import_export"] = {run: c[k["name"]] for run, c in imp_counts.items()}
         k["launches_production"] = {run: c[k["name"]] for run, c in prod_counts.items()}
         k["launches_examples"] = {run: c[k["name"]] for run, c in example_counts.items()}
+        k["launches_parallel"] = {run: c[k["name"]] for run, c in par_counts.items()}
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,18 +3,25 @@ detector checkpoints (the port's copy of ``cvsd_tpu/cli/common.py``).
 
 ``--device`` takes the place of the JAX CLIs' ``JAX_PLATFORMS``: unset, the
 entry points run on the CUDA card and raise without one; ``--device cpu``
-runs them on the host. The persistent compile cache (ROADMAP.md, module
-queue: The rest) and the mesh (module queue: Parallel) are not ported.
+runs them on the host. ``maybe_mesh`` gives a process launched by
+``torchrun`` with several ranks its data-parallel mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Any, Dict, Tuple
 
 import torch
 
 from cvsd_tpu_torch.config import apply_overrides, get_default_config, load_config, validate_config
+
+# Opt-in compile cache (CVSD_COMPILE_CACHE_DIR): the CUDA kernels build into
+# and load from that directory, so a warm one skips nvcc at a CLI's start.
+from cvsd_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
+
+maybe_enable_compile_cache()
 
 
 def add_config_args(p: argparse.ArgumentParser) -> None:
@@ -79,3 +86,20 @@ def load_detector_cli(path: str, cfg: Dict[str, Any], overrides=None
     with torch.device("meta"):
         template = detector_from_config(cfg)
     return flax_to_state_dict(variables, template), cfg
+
+
+def maybe_mesh(cfg: Dict[str, Any]):
+    """A MeshConfig when the process is one of several ranks (``WORLD_SIZE``
+    > 1, as ``torchrun`` sets it): the counterpart of the JAX CLIs' "more
+    than one device visible". Joins the process group from the launcher's
+    environment first where nobody has (NCCL with a card, gloo without).
+    None otherwise."""
+    import torch.distributed as dist
+
+    from cvsd_tpu_torch.parallel.mesh import MeshConfig
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    if not dist.is_initialized():
+        dist.init_process_group(backend="nccl" if torch.cuda.is_available() else "gloo")
+    return MeshConfig.from_config(cfg)

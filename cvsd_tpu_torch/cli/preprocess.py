@@ -3,8 +3,9 @@
     python -m cvsd_tpu_torch.cli.preprocess --dataset_dir dataset \
         --categories Shoplifting Shopping --limit 5 [--device cpu]
 
-The port runs on one device (no mesh). ``--device`` unset means the CUDA
-card, an error without one.
+``--device`` unset means the CUDA card, an error without one. Launched as
+several ranks (``torchrun``), detection is data-parallel over the ranks'
+mesh (``cli/common.py::maybe_mesh``) and rank 0 alone writes the CSVs.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from cvsd_tpu_torch.cli.common import add_config_args, resolve_config
+from cvsd_tpu_torch.cli.common import add_config_args, maybe_mesh, resolve_config
 from cvsd_tpu_torch.utils.device import use_float32_math
 
 
@@ -39,7 +40,8 @@ def main(argv=None) -> None:
 
     stats = preprocess_ucf_crime(cfg, args.dataset_dir, output_dir=args.output_dir,
                                  category_filter=args.categories, limit=args.limit,
-                                 state_dict=state_dict, device=args.device)
+                                 state_dict=state_dict, device=args.device,
+                                 mesh_config=maybe_mesh(cfg))
     print(json.dumps(stats, indent=2, default=str))
 
 

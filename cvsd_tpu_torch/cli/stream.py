@@ -4,8 +4,10 @@ track -> Shopformer anomaly scores.
     python -m cvsd_tpu_torch.cli.stream --checkpoint ckpt/stage2_best.msgpack \
         --videos a.mp4 b.mp4 --concurrent --output events.json [--device cpu]
 
-The port runs on one card: ``--no_mesh`` is accepted and changes nothing
-(the mesh is ROADMAP.md, module queue: Parallel).
+Launched as several ranks (``torchrun --nproc_per_node N -m
+cvsd_tpu_torch.cli.stream ...``), the frame batches shard over the ranks'
+data mesh (``cli/common.py::maybe_mesh``) unless ``--no_mesh`` is given;
+rank 0 alone writes ``--output`` and ``--events_jsonl``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import argparse
 import dataclasses
 import json
 
-from cvsd_tpu_torch.cli.common import add_config_args, resolve_config
+from cvsd_tpu_torch.cli.common import add_config_args, maybe_mesh, resolve_config
 from cvsd_tpu_torch.utils.device import use_float32_math
 
 
@@ -39,7 +41,8 @@ def main(argv=None) -> None:
                    help="write each scored window as a JSON line AS IT IS "
                         "SCORED (live sink; requires --concurrent)")
     p.add_argument("--no_mesh", action="store_true",
-                   help="accepted for the JAX CLI's sake: the port runs on one device")
+                   help="single-device even when launched as several ranks "
+                        "(default: shard frame batches over the data mesh axis)")
     args = p.parse_args(argv)
     use_float32_math()
     if args.events_jsonl and not args.concurrent:
@@ -47,6 +50,7 @@ def main(argv=None) -> None:
 
     from cvsd_tpu_torch.config import apply_overrides
     from cvsd_tpu_torch.eval.evaluate import load_model
+    from cvsd_tpu_torch.parallel.mesh import writes
     from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
 
     # --config takes the place of the checkpoint's embedded config, as
@@ -63,10 +67,14 @@ def main(argv=None) -> None:
         detector_state_dict, cfg = load_detector_cli(args.detector_checkpoint, cfg,
                                                      args.overrides)
     scorer.config = cfg
+    # multi-rank streaming: shard multiplexed frame batches over the mesh's
+    # data axis when launched as several ranks (disable with --no_mesh)
+    mesh_config = None if args.no_mesh else maybe_mesh(cfg)
+    writer = writes(mesh_config)
     pipe = StreamingPipeline(cfg, scorer, detector_state_dict=detector_state_dict,
-                             device=args.device)
+                             device=args.device, mesh_config=mesh_config)
     if args.concurrent:
-        sink = open(args.events_jsonl, "w") if args.events_jsonl else None
+        sink = open(args.events_jsonl, "w") if args.events_jsonl and writer else None
         try:
             on_event = None
             if sink is not None:
@@ -105,7 +113,7 @@ def main(argv=None) -> None:
         if res.unmatched_videos:
             print(f"  unmatched (no GT): {res.unmatched_videos}")
         result["streaming_eval"] = res.as_dict()
-    if args.output:
+    if args.output and writer:
         with open(args.output, "w") as f:
             json.dump(result, f, indent=2, default=float)
 

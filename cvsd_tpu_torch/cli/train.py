@@ -7,14 +7,16 @@
 Checkpoints (``stage{1,2}_{best,final,epochN}.msgpack``) are the JAX
 package's format: either package loads them. ``--profile DIR`` writes a
 ``torch.profiler`` chrome trace of the run to ``DIR/trace.json``.
-``--device`` unset means the CUDA card, an error without one.
+``--device`` unset means the CUDA card, an error without one. Launched as
+several ranks (``torchrun``), training is data-parallel over the ranks' mesh
+(``cli/common.py::maybe_mesh``); rank 0 alone writes.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from cvsd_tpu_torch.cli.common import add_config_args, resolve_config
+from cvsd_tpu_torch.cli.common import add_config_args, maybe_mesh, resolve_config
 from cvsd_tpu_torch.utils.device import resolve_device, use_float32_math
 
 
@@ -51,8 +53,8 @@ def main(argv=None) -> None:
     from cvsd_tpu_torch.utils.logging import device_trace
 
     with device_trace(args.profile):
-        train_from_config(cfg, start_stage=args.stage, resume_checkpoint=args.checkpoint,
-                          device=device)
+        train_from_config(cfg, mesh_config=maybe_mesh(cfg), start_stage=args.stage,
+                          resume_checkpoint=args.checkpoint, device=device)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,12 @@ transformer and XceptionTime.
 - ``frozen_batch_stats``: a forward recomputed in the backward pass must not
   move the running statistics a second time; the trainer runs the backward
   pass inside it.
+- Data parallelism (``parallel/mesh.py``): under a mesh flax's train-mode
+  statistics are the global batch's, so ``set_data_group`` makes every
+  ``FlaxBatchNorm`` average its per-channel mean and mean of squares over
+  the ranks (in float32, flax's formula after, the running statistics moved
+  once), and a ``DropoutRNG`` with ``rows`` draws the global batch's masks
+  and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ class FlaxBatchNorm(nn.Module):
         self.feature_dims = tuple(feature_dims)
         self.momentum, self.eps = momentum, eps
         self.update_stats = True  # cleared by frozen_batch_stats
+        self.data_group = None  # set_data_group: statistics over the mesh's data axis
         self.weight = nn.Parameter(torch.ones(*shape))
         self.bias = nn.Parameter(torch.zeros(*shape))
         self.register_buffer("running_mean", torch.zeros(*shape))
@@ -62,8 +69,11 @@ class FlaxBatchNorm(nn.Module):
         view = [x.shape[d] if d in feat else 1 for d in range(x.ndim)]
         x32 = x.float()  # a no-op for float32 input
         if self.training:
-            mean = x32.mean(dim=reduce)
-            var = torch.clamp((x32 * x32).mean(dim=reduce) - mean * mean, min=0.0)
+            mean, mean_sq = x32.mean(dim=reduce), (x32 * x32).mean(dim=reduce)
+            if self.data_group is not None:  # every rank holds as many rows
+                both = self.data_group.all_sum(torch.stack([mean, mean_sq]) / self.data_group.size)
+                mean, mean_sq = both[0], both[1]
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
@@ -89,26 +99,46 @@ def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
             m.update_stats = s
 
 
+def set_data_group(module: nn.Module, group) -> nn.Module:
+    """Every ``FlaxBatchNorm`` of ``module`` takes its train-mode statistics
+    over ``group`` (a ``parallel.mesh.DataGroup``; None: this rank's batch)."""
+    for m in module.modules():
+        if isinstance(m, FlaxBatchNorm):
+            m.data_group = group
+    return module
+
+
 class DropoutRNG:
     """Dropout masks from one explicit generator, in the order a forward asks
     for them. ``rewind`` before a recomputed forward makes it take the same
-    masks again instead of drawing new ones."""
+    masks again instead of drawing new ones. ``rows`` = (slice, global
+    rows): a mask over the batch is drawn for the global batch and this
+    rank's rows are kept, so a meshed step drops what the single-device
+    step on the global batch drops."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: torch.Generator, rows: Optional[Tuple[slice, int]] = None):
         self.generator = generator
+        self.rows = rows
         self._masks: List[torch.Tensor] = []
         self._cursor = 0
 
     def rewind(self) -> None:
         self._cursor = 0
 
-    def keep_mask(self, shape: Tuple[int, ...], keep: float, device: torch.device) -> torch.Tensor:
-        """A boolean mask of ``shape``, True with probability ``keep``."""
+    def keep_mask(self, shape: Tuple[int, ...], keep: float, device: torch.device,
+                  batched: bool = True) -> torch.Tensor:
+        """A boolean mask of ``shape``, True with probability ``keep``;
+        ``batched``: dim 0 is the batch (False for a mask broadcast over it)."""
         if self._cursor < len(self._masks):
             mask = self._masks[self._cursor]
         else:
-            u = torch.empty(shape, device=device).bernoulli_(keep, generator=self.generator)
+            draw = shape
+            if batched and self.rows is not None:
+                draw = (self.rows[1],) + tuple(shape[1:])
+            u = torch.empty(draw, device=device).bernoulli_(keep, generator=self.generator)
             mask = u.bool()
+            if draw != shape:
+                mask = mask[self.rows[0]]
             self._masks.append(mask)
         self._cursor += 1
         return mask

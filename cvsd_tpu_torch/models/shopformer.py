@@ -137,23 +137,28 @@ class Shopformer(nn.Module):
 
     def compute_gcae_loss(self, poses: torch.Tensor, train: bool = True,
                           mask: Optional[torch.Tensor] = None,
-                          rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+                          rng: Optional[DropoutRNG] = None, data_group=None) -> torch.Tensor:
         """Stage 1: MSE between the GCAE's reconstruction and the poses; in
-        train mode the GCAE's BatchNorms move their running statistics."""
+        train mode the GCAE's BatchNorms move their running statistics.
+        With ``data_group`` (a meshed step on this rank's rows): this rank's
+        share of the global batch's loss."""
         with set_mode(self.gcae, train):
             recon, _ = self.gcae(poses, rng)
-        return _masked_mean(((recon - poses) ** 2).mean(dim=(1, 2, 3)), mask)
+        return _masked_mean(((recon - poses) ** 2).mean(dim=(1, 2, 3)), mask, data_group)
 
     def compute_transformer_loss(self, poses: torch.Tensor, train: bool = True,
                                  mask: Optional[torch.Tensor] = None,
-                                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+                                 rng: Optional[DropoutRNG] = None,
+                                 data_group=None) -> torch.Tensor:
         """Stage 2: MSE between the transformer's output and the variant
-        target, on tokens from the GCAE in eval mode without gradients."""
+        target, on tokens from the GCAE in eval mode without gradients
+        (``data_group`` as in stage 1)."""
         with torch.no_grad(), set_mode(self.gcae, False):
             tokens = self.gcae.encode(poses)
         with set_mode(self.transformer, train):
             recon = self.transformer(tokens, rng)
-        return _masked_mean(((recon - self.score_target(tokens)) ** 2).mean(dim=(1, 2)), mask)
+        return _masked_mean(((recon - self.score_target(tokens)) ** 2).mean(dim=(1, 2)), mask,
+                            data_group)
 
     @classmethod
     def from_config(cls, config: Dict[str, Any]) -> "Shopformer":
@@ -211,8 +216,17 @@ def count_parameters(model: nn.Module) -> Dict[str, int]:
     return counts
 
 
-def _masked_mean(per_sample: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(per_sample: torch.Tensor, mask: Optional[torch.Tensor],
+                 data_group=None) -> torch.Tensor:
+    """The mean over the valid samples. With a data group, this rank's share
+    of the global batch's mean: its sum over the global valid count, so the
+    shares sum to the global mean (per-rank means would weigh every rank
+    alike whatever its valid count)."""
     if mask is None:
-        return per_sample.mean()
+        mean = per_sample.mean()
+        return mean if data_group is None else mean / data_group.size
     mask = mask.to(per_sample.dtype)
-    return (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if data_group is not None:
+        count = data_group.sum_(count.detach().clone())
+    return (per_sample * mask).sum() / torch.clamp(count, min=1.0)

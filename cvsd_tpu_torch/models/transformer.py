@@ -75,7 +75,7 @@ class MultiHeadDotProductAttention(nn.Module):
             if rng is None:
                 raise ValueError("train-mode dropout needs a DropoutRNG (an explicit generator)")
             keep = 1.0 - self.dropout
-            mask = rng.keep_mask((1, 1, Lq, Lk), keep, weights.device)
+            mask = rng.keep_mask((1, 1, Lq, Lk), keep, weights.device, batched=False)
             weights = weights * (mask.to(weights.dtype) / keep)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out(out.reshape(B, Lq, h * hd))

@@ -21,6 +21,14 @@ runs one video at a time; ``process_videos_multiplexed`` fills shared
 detector batches from up to ``max_streams`` videos of one resolution and
 writes the same bytes. Videos are decoded with cv2 (imported where a video
 is opened); the native decoder is not ported (ROADMAP.md, deferred items).
+
+With ``mesh_config`` (``parallel/mesh.py``) detection is data-parallel, as
+the reference's over its mesh: the batch size is padded to a multiple of
+the data axis, the detector (and top-down pose net) holds rank 0's weights,
+each rank detects its rows of every batch (one ``nms_fixpoint`` launch) and
+the fixed-shape outputs are all-gathered, so every rank gets the full
+batch, as JAX returns the global array. Every rank then runs the same host
+loop on the same outputs; only rank 0 writes the CSVs.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from cvsd_tpu_torch.ops.iou import xyxy_to_xywhn
 from cvsd_tpu_torch.ops.nms import check_nms_method
 from cvsd_tpu_torch.ops.letterbox import (PAD_VALUE, letterbox_batch, letterbox_params,
                                           unletterbox_boxes)
+from cvsd_tpu_torch.parallel.mesh import replicate, writes
 from cvsd_tpu_torch.pipeline._decode_ahead import make_next_batch
 from cvsd_tpu_torch.track import IoUTracker, make_tracker
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
@@ -52,7 +61,8 @@ from cvsd_tpu_torch.utils.hostmem import malloc_trim
 
 
 class DetectionPipeline:
-    """Detector + fused pre/postprocess on one device.
+    """Detector + fused pre/postprocess on one device, or data-parallel over
+    ``mesh_config`` (the module docstring).
 
     ``pose_model``: a TopDownPoseNet carrying its weights; its keypoints
     replace the detector head's. ``detector.pose_mode: topdown`` without one
@@ -64,16 +74,15 @@ class DetectionPipeline:
                  seed: int = 0, device: DeviceLike = None,
                  mesh_config: Optional[Any] = None,
                  pose_model: Optional[TopDownPoseNet] = None):
-        if mesh_config is not None:
-            raise NotImplementedError(
-                "mesh_config (data-parallel detection) is not ported yet: ROADMAP.md, "
-                "module queue: Parallel")
         d = config.get("detector", {})
         nms_method = str(d.get("nms_method", "pallas_fixpoint"))
         check_nms_method(nms_method)
         pose_mode = str(d.get("pose_mode", "head"))
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh_config = mesh_config
+        self._dp = mesh_config.data_group() if mesh_config is not None else None
+        self.device = resolve_device(device if device is not None or mesh_config is None
+                                     else mesh_config.device)
         # the top-down pose net and float32 detectors run in float32
         use_float32_math()
         self.model: PersonDetector = build_detector(config, self.device, seed, state_dict)
@@ -109,6 +118,11 @@ class DetectionPipeline:
         self.tta_flip = bool(d.get("tta_flip", False))
         self._detect = make_detect_fn(self.model, self.conf, self.iou, self.max_det,
                                       nms_method=nms_method, tta_flip=self.tta_flip)
+        if self._dp is not None:
+            self.batch_size = -(-self.batch_size // self._dp.size) * self._dp.size
+            for net in (self.model, self.pose_model):
+                if net is not None:
+                    replicate(mesh_config.mesh, net)
 
     def _canvas_size(self, src_h: int, src_w: int) -> int:
         if not self.auto_size:
@@ -117,7 +131,25 @@ class DetectionPipeline:
         return int(min(max(-(-s // 64) * 64, 256), self.model.img_size))
 
     @torch.no_grad()
-    def _full(self, frames: torch.Tensor, src_h: int, src_w: int):
+    def _full(self, frames, src_h: int, src_w: int):
+        """uint8 frames (numpy, or a tensor) -> device tensors (boxes_src,
+        xywhn, scores, valid[, kpts]); under a mesh this rank detects its rows
+        (the batch zero-padded to split over the data axis) and every rank
+        gets the gathered batch."""
+        if self._dp is None:
+            return self._full_rows(self._upload(frames), src_h, src_w)
+        B = frames.shape[0]
+        pad = -B % self._dp.size
+        if pad:
+            if isinstance(frames, torch.Tensor):
+                frames = torch.cat([frames, frames.new_zeros((pad, *frames.shape[1:]))])
+            else:
+                frames = np.concatenate([frames, np.zeros((pad, *frames.shape[1:]),
+                                                          frames.dtype)])
+        out = self._full_rows(self._upload(frames[self._dp.rows(B + pad)]), src_h, src_w)
+        return tuple(self._dp.gather_rows(o)[:B] for o in out)
+
+    def _full_rows(self, frames: torch.Tensor, src_h: int, src_w: int):
         """uint8 frames on the device -> (boxes_src, xywhn, scores, valid[, kpts])."""
         size = self._canvas_size(src_h, src_w)
         dtype = self.model.dtype
@@ -182,12 +214,12 @@ class DetectionPipeline:
             if isinstance(frames, torch.Tensor):
                 raise TypeError("host_letterbox takes numpy frames (cv2 resizes them)")
             return self.detect_canvas_async(self._host_letterbox_batch(frames), H, W)
-        return self._full(self._upload(frames), H, W)
+        return self._full(frames, H, W)
 
     def detect_canvas_async(self, canvas_frames: np.ndarray, src_h: int, src_w: int):
         """Enqueue pre-letterboxed canvas (or content) frames for a source of
         (src_h, src_w)."""
-        return self._full(self._upload(canvas_frames), src_h, src_w)
+        return self._full(canvas_frames, src_h, src_w)
 
     @staticmethod
     def fetch_detections_group(outs: Sequence[Tuple[torch.Tensor, ...]]):
@@ -278,7 +310,7 @@ def process_video(
             drain_one()
     while inflight:
         drain_one()
-    if rows:
+    if rows and writes(pipeline.mesh_config):
         _write_rows(csv_path, rows)
     dt = time.perf_counter() - t0
     return {"frames": n_frames, "detections": len(rows), "rows": len(rows), "seconds": dt,
@@ -464,14 +496,13 @@ def preprocess_ucf_crime(
     without one. Pass ``pipeline`` to reuse a built one. ``max_streams`` > 1
     multiplexes that many videos into shared detector batches, one pass per
     source resolution, and writes the same bytes. Returns {videos, frames,
-    rows, skipped, seconds, fps[, stage_seconds]}."""
-    if mesh_config is not None:
-        raise NotImplementedError(
-            "mesh_config (data-parallel detection) is not ported yet: ROADMAP.md, "
-            "module queue: Parallel")
+    rows, skipped, seconds, fps[, stage_seconds]}. ``mesh_config``: detection
+    data-parallel over the mesh (``DetectionPipeline``), the rest the same on
+    every rank, only rank 0 writing; the CSV bytes are the single device's."""
     _refuse_native_decode(config)
     if pipeline is None:  # first, so a missing card is reported before any file
-        pipeline = DetectionPipeline(config, state_dict=state_dict, device=device)
+        pipeline = DetectionPipeline(config, state_dict=state_dict, device=device,
+                                     mesh_config=mesh_config)
     output_dir = output_dir or dataset_dir
     entries = read_train_list(os.path.join(dataset_dir, train_list), category_filter)
     if limit:
@@ -514,7 +545,7 @@ def preprocess_ucf_crime(
         for entry, _video_path in present:
             rows = rows_for_entry.get(entry.index, [])
             stats["rows"] += len(rows)
-            if rows:
+            if rows and writes(pipeline.mesh_config):
                 _write_rows(route_csv(entry.label, output_dir)[0], rows)
         stats["seconds"] = time.perf_counter() - t0
     else:

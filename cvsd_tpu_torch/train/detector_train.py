@@ -20,10 +20,15 @@ same ``gt_idx``. GT arrives padded: (B, G, 4) boxes and a (B, G) mask.
 (``models/detector.py``'s docstring), optax's ``clip_by_global_norm(10)``
 then Adam (``train/optim.py::StageOptimizer``), the warmup-cosine schedule
 to 1 % when ``total_steps`` is set (optax counts from 0, so the first
-update's rate is 0), and the ramped EMA of the parameters. One device; the
-default is the CUDA card, raising without one. ``train_steps_scan`` is the
-reference's one-dispatch ``lax.scan``: one host-to-device copy of the chunk
-and the same per-step updates in a Python loop.
+update's rate is 0), and the ramped EMA of the parameters. One device (the
+default is the CUDA card, raising without one) or, with ``mesh_config``,
+data-parallel as the reference over its mesh: rank 0's weights on every
+rank, each rank's rows of every batch (dim 1 of ``train_steps_scan``'s
+chunks), the BatchNorm statistics and the loss over the global batch, the
+gradients summed before the clip and Adam; only rank 0 saves.
+``train_steps_scan`` is the reference's one-dispatch ``lax.scan``: one
+host-to-device copy of the chunk and the same per-step updates in a Python
+loop.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ import torch.nn.functional as F
 
 from cvsd_tpu_torch.models.detector import (STRIDES, PersonDetector, decode_predictions,
                                             decode_predictions_v8)
+from cvsd_tpu_torch.models.layers import set_data_group
 from cvsd_tpu_torch.ops.iou import box_iou_matrix
+from cvsd_tpu_torch.parallel.mesh import replicate, writes
 from cvsd_tpu_torch.train.optim import Schedule, StageOptimizer, _warmup_cosine_decay
 from cvsd_tpu_torch.utils.checkpoint import save_checkpoint
 from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
@@ -105,11 +112,18 @@ def detection_loss(
     head_variant: str = "anchor_free",
     num_classes: int = 80,
     reg_max: int = 16,
+    data_group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and its components from the raw head maps: objectness BCE,
     the IoU box loss and, with the pose head, the keypoint regression. For
     ``v8dfl`` the person-class logit plays objectness and the box loss flows
-    through the DFL softmax-expectation decode. Computed in float32."""
+    through the DFL softmax-expectation decode. Computed in float32.
+
+    With ``data_group`` (this rank's rows of a meshed batch) the loss and
+    its components are this rank's shares of the global batch's: the
+    objectness mean over the ranks, the box and keypoint sums over the
+    global positive count (``n_pos``, returned global), since the ranks'
+    positive counts differ."""
     if head_variant == "v8dfl":
         pred_boxes, _scores, pred_kpts = decode_predictions_v8(
             raw, num_classes, reg_max, num_keypoints)
@@ -126,10 +140,14 @@ def detection_loss(
     if obj_pos_weight != 1.0:
         obj_bce = torch.where(pos, obj_pos_weight * obj_bce, obj_bce)
     obj_loss = obj_bce.mean()
+    n_pos = pos.sum().to(torch.float32)
+    if data_group is not None:
+        obj_loss = obj_loss / data_group.size
+        n_pos = data_group.sum_(n_pos)
+    n_pos = n_pos.clamp(min=1.0)
 
     # IoU of each anchor's box with its own target (the diagonal)
     iou = box_iou_matrix(pred_boxes[..., None, :], target[..., None, :])[..., 0, 0]
-    n_pos = pos.sum().to(torch.float32).clamp(min=1.0)
     box_loss = torch.where(pos, 1.0 - iou, 0.0).sum() / n_pos
 
     total = obj_loss + box_weight * box_loss
@@ -179,7 +197,8 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 class DetectorTrainer:
-    """Trainer for the person detector on one device.
+    """Trainer for the person detector on one device, or data-parallel over
+    ``mesh_config`` (the module docstring).
 
     ``model`` is a ``PersonDetector`` (its ``dtype`` is the compute dtype);
     its weights come from flax ``variables`` (``utils/weights.py``) or from
@@ -191,11 +210,7 @@ class DetectorTrainer:
                  mesh_config: Any = None, total_steps: int = 0, warmup_steps: int = 0,
                  ema_decay: float = 0.0, variables: Optional[Mapping[str, Any]] = None,
                  device: DeviceLike = None):
-        if mesh_config is not None:
-            raise NotImplementedError(
-                "mesh_config: the port trains on one device; a mesh waits for ROADMAP.md "
-                "section 1, item Parallel")
-        self.device = resolve_device(device)
+        self._init_mesh(mesh_config, device)
         use_float32_math()  # float32 parts run in float32, not TF32
         # cuDNN's backward kernels that add with atomics are not chosen, so a
         # run repeats bit for bit on one device (process-wide, as TF32's flags)
@@ -203,7 +218,7 @@ class DetectorTrainer:
         self.obj_pos_weight = float(obj_pos_weight)
         self.kpt_weight = float(kpt_weight)
         self.ema_decay = float(ema_decay)
-        self.model = place_for_training(model, variables, seed, self.device)
+        self.model = self._replicated(place_for_training(model, variables, seed, self.device))
         centers, strides = anchor_centers(model.img_size)
         self._centers = torch.from_numpy(centers).to(self.device)
         self._strides = torch.from_numpy(strides).to(self.device)
@@ -213,6 +228,20 @@ class DetectorTrainer:
         self.ema_params = ([p.detach().clone() for p in params] if self.ema_decay > 0
                            else None)
         self._ema_t = 0
+
+    def _init_mesh(self, mesh_config: Any, device: DeviceLike) -> None:
+        self.mesh_config = mesh_config
+        self._dp = mesh_config.data_group() if mesh_config is not None else None
+        self._writer = writes(mesh_config)
+        self.device = resolve_device(device if device is not None or mesh_config is None
+                                     else mesh_config.device)
+
+    def _replicated(self, model: torch.nn.Module) -> torch.nn.Module:
+        """``model`` with rank 0's weights and the global batch's BatchNorm
+        statistics under a mesh; as it is without."""
+        if self.mesh_config is None:
+            return model
+        return set_data_group(replicate(self.mesh_config.mesh, model), self._dp)
 
     # -- weights --------------------------------------------------------------
 
@@ -247,9 +276,15 @@ class DetectorTrainer:
 
     # -- steps ----------------------------------------------------------------
 
-    def _put(self, array: Optional[np.ndarray], dtype=np.float32) -> Optional[torch.Tensor]:
+    def _put(self, array: Optional[np.ndarray], dtype=np.float32,
+             batch_dim: int = 0) -> Optional[torch.Tensor]:
+        """A global host batch on the device; under a mesh, this rank's rows
+        of it (the batch on ``batch_dim``)."""
         if array is None:
             return None
+        if self._dp is not None:
+            index = [slice(None)] * batch_dim + [self._dp.rows(array.shape[batch_dim])]
+            array = array[tuple(index)]
         return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(self.device,
                                                                        non_blocking=True)
 
@@ -262,12 +297,18 @@ class DetectorTrainer:
             raw, gt_boxes, gt_valid, m.img_size, self._centers, self._strides,
             gt_kpts=gt_kpts if m.num_keypoints else None, num_keypoints=m.num_keypoints,
             obj_pos_weight=self.obj_pos_weight, kpt_weight=self.kpt_weight,
-            head_variant=m.head_variant, num_classes=m.num_classes, reg_max=m.reg_max)
+            head_variant=m.head_variant, num_classes=m.num_classes, reg_max=m.reg_max,
+            data_group=self._dp)
         loss.backward()
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        if self._dp is not None:  # the sum of the shares' gradients: the global batch's
+            self._dp.reduce_gradients(self.model.parameters())
+            loss = self._dp.sum_(loss)
+            aux = {k: v if k == "n_pos" else self._dp.sum_(v) for k, v in aux.items()}
         self.opt.step()
         if self.ema_params is not None:
             self._ema_update()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        return loss, aux
 
     def train_step(self, images: np.ndarray, gt_boxes: np.ndarray, gt_valid: np.ndarray,
                    gt_kpts: Optional[np.ndarray] = None) -> Dict[str, float]:
@@ -285,8 +326,8 @@ class DetectorTrainer:
         if gt_kpts is None:
             gt_kpts = np.zeros((*gt_boxes.shape[:3], max(self.model.num_keypoints, 1), 2),
                                np.float32)
-        imgs, boxes = self._put(images), self._put(gt_boxes)
-        valid, kpts = self._put(gt_valid, bool), self._put(gt_kpts)
+        imgs, boxes = self._put(images, batch_dim=1), self._put(gt_boxes, batch_dim=1)
+        valid, kpts = self._put(gt_valid, bool, batch_dim=1), self._put(gt_kpts, batch_dim=1)
         losses = [self._step(imgs[i], boxes[i], valid[i], kpts[i])[0] for i in range(len(imgs))]
         return {"losses": torch.stack(losses).cpu().numpy()}
 
@@ -295,7 +336,10 @@ class DetectorTrainer:
         """The detector's variables (the EMA weights by default when EMA is on)
         with the architecture config embedded: the JAX package's file, which
         either package's ``load_detector_checkpoint`` and the stream /
-        preprocess CLIs' ``--detector_checkpoint`` read."""
+        preprocess CLIs' ``--detector_checkpoint`` read. Under a mesh only
+        rank 0 writes."""
+        if not self._writer:
+            return
         m = self.model
         det_cfg = {
             "img_size": m.img_size, "width_mult": m.width_mult,

@@ -1,6 +1,6 @@
 """Two-stage Shopformer trainer: stage freezing, schedules, accumulation,
 early stopping, checkpoints, metrics and artifacts (PyTorch port of
-``cvsd_tpu/train/loop.py``, on one device).
+``cvsd_tpu/train/loop.py``), on one device or data-parallel over a mesh.
 
 Stage 1 trains the GCAE on its reconstruction loss (BatchNorm statistics
 move); stage 2 freezes it and trains the transformer on tokens from the GCAE
@@ -14,6 +14,17 @@ Randomness: each step's augmentation and dropout draw from two explicit
 ``torch.Generator``s on the device, seeded from host counters only,
 (seed, epoch * 100003 + i) as in JAX, so a run repeats bit for bit on one
 device. The global RNG is never used.
+
+With ``mesh_config`` (``parallel/mesh.py``) the trainer is data-parallel, as
+the JAX package's over its mesh: every rank holds rank 0's weights and runs
+the same epoch loop on the same batches (padded to a multiple of the data
+axis); it augments the global batch from the shared generator, keeps its
+rows, takes its share of the global masked loss (the train-mode BatchNorm
+statistics are the global batch's, the dropout masks the global batch's
+rows), and the gradients are summed over the ranks before the clip and
+Adam, so each update is the single-device update on the global batch. Only
+rank 0 writes checkpoints, logs and artifacts; test scoring runs whole on
+every rank.
 
 ``training.scan_epoch`` (the JAX package's one ``lax.scan`` per epoch) copies
 the epoch's batches to the device in one transfer (``scan_epoch_chunk``
@@ -32,14 +43,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from cvsd_tpu_torch.config import Config, save_config, validate_config
 from cvsd_tpu_torch.data.augment import batched_augment_from_config
 from cvsd_tpu_torch.data.datamodule import PoseLiftDataModule
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
-from cvsd_tpu_torch.models.layers import DropoutRNG, frozen_batch_stats
+from cvsd_tpu_torch.models.layers import DropoutRNG, frozen_batch_stats, set_data_group
 from cvsd_tpu_torch.models.shopformer import Shopformer, build_shopformer, count_parameters
+from cvsd_tpu_torch.parallel.mesh import replicate, writes
 from cvsd_tpu_torch.train.optim import (
     EarlyStopping,
     PlateauController,
@@ -67,22 +80,23 @@ def step_seeds(seed: int, counter: int) -> Tuple[int, int]:
 
 class Trainer:
     """Two-stage trainer. Usage: ``Trainer(config).setup().fit()``.
-    ``device``: the default is the CUDA card, raising without one."""
+    ``device``: the default is the CUDA card (the mesh's device with a
+    mesh), raising without one."""
 
     def __init__(self, config: Dict[str, Any], mesh_config: Any = None, verbose: bool = True,
                  device: DeviceLike = None):
-        if mesh_config is not None:
-            raise NotImplementedError(
-                "mesh_config: the port trains on one device; a mesh waits for ROADMAP.md "
-                "section 1, item Parallel")
-        self.device = resolve_device(device)
+        self.mesh_config = mesh_config
+        self._dp = mesh_config.data_group() if mesh_config is not None else None
+        self._writer = writes(mesh_config)
+        self.device = resolve_device(device if device is not None or mesh_config is None
+                                     else mesh_config.device)
         use_float32_math()  # the reference trains the Shopformer in float32
         # a run repeats bit for bit on one device: cuDNN's backward kernels
         # that add with atomics are not chosen (process-wide, as TF32's flags)
         torch.backends.cudnn.deterministic = True
         validate_config(config)
         self.config = Config(config)
-        self.verbose = verbose
+        self.verbose = verbose and self._writer  # one rank of a mesh reports
         self.model: Optional[Shopformer] = None
         self.datamodule: Optional[PoseLiftDataModule] = None
         self.history: Dict[str, Any] = {"stage1": [], "stage2": []}
@@ -98,6 +112,8 @@ class Trainer:
         self.seed = int(cfg["experiment"].get("seed", 42))
         self.datamodule = PoseLiftDataModule(cfg, verbose=self.verbose).setup()
         self.model = build_shopformer(cfg, device=self.device, seed=self.seed)
+        if self.mesh_config is not None:
+            set_data_group(replicate(self.mesh_config.mesh, self.model), self._dp)
         self.scorer = ShopformerScorer(self.model, cfg, device=self.device)
         t = cfg["training"]
         self._augment = bool(cfg["data"].get("augment", {}).get("enabled", True))
@@ -105,9 +121,10 @@ class Trainer:
         self._gens = (torch.Generator(device=self.device), torch.Generator(device=self.device))
 
         out_dir = cfg["experiment"].get("checkpoint_dir", "checkpoints")
-        self.ckpt = CheckpointManager(out_dir, config=cfg.to_dict())
+        self.ckpt = CheckpointManager(out_dir, config=cfg.to_dict(), write=self._writer)
         self.logger = ScalarLogger(out_dir) if self.verbose else None
-        save_config(cfg, os.path.join(out_dir, "config.json"))
+        if self._writer:
+            save_config(cfg, os.path.join(out_dir, "config.json"))
         if self.verbose:
             print(f"Model parameters: {count_parameters(self.model)}")
             print(f"Dataset stats: {self.datamodule.get_stats()}")
@@ -118,32 +135,44 @@ class Trainer:
         is taken over every parameter's gradient."""
         t = self.config["training"]
         epochs = int(t[f"stage{stage}_epochs"])
-        steps = max(self.datamodule.steps_per_epoch() // int(t.get("grad_accum_steps", 1)), 1)
+        steps = max(self.datamodule.steps_per_epoch(self._data_multiple())
+                    // int(t.get("grad_accum_steps", 1)), 1)
         labels = stage_param_labels([n for n, _ in self.model.named_children()], stage)
         trained = [p for name, part in self.model.named_children() if labels[name] == "train"
                    for p in part.parameters()]
         return build_optimizer(self.config, steps, epochs, trained, self.model.parameters())
+
+    def _data_multiple(self) -> int:
+        return 1 if self._dp is None else self._dp.size
 
     # -- one step ---------------------------------------------------------------
 
     def _loss(self, stage: int, poses: torch.Tensor, mask: torch.Tensor,
               rng: DropoutRNG) -> torch.Tensor:
         if stage == 1:
-            return self.model.compute_gcae_loss(poses, train=True, mask=mask, rng=rng)
-        return self.model.compute_transformer_loss(poses, train=True, mask=mask, rng=rng)
+            return self.model.compute_gcae_loss(poses, train=True, mask=mask, rng=rng,
+                                                data_group=self._dp)
+        return self.model.compute_transformer_loss(poses, train=True, mask=mask, rng=rng,
+                                                   data_group=self._dp)
 
     def train_step(self, stage: int, opt: StageOptimizer, poses: torch.Tensor,
                    mask: torch.Tensor, counter: int) -> torch.Tensor:
         """One micro-step on a batch already on the device: augment, forward,
         backward, the optimizer's micro-step. Returns the loss on the device
-        (no host sync)."""
+        (no host sync). Under a mesh ``poses`` and ``mask`` are the global
+        batch: it is augmented whole (mixup pairs rows across ranks) and this
+        rank keeps its rows; the loss returned is the global one."""
         aug_seed, drop_seed = step_seeds(self.seed, counter)
         aug_gen, drop_gen = self._gens
         if self._augment:
             aug_gen.manual_seed(aug_seed)
             poses = batched_augment_from_config(aug_gen, poses, self.config)
         drop_gen.manual_seed(drop_seed)
-        rng = DropoutRNG(drop_gen)
+        rows = None
+        if self._dp is not None:
+            rows = (self._dp.rows(poses.shape[0]), poses.shape[0])
+            poses, mask = poses[rows[0]], mask[rows[0]]
+        rng = DropoutRNG(drop_gen, rows)
         if self._remat:
             def forward(p):
                 rng.rewind()  # a recomputed forward takes the same masks
@@ -155,8 +184,12 @@ class Trainer:
         else:
             loss = self._loss(stage, poses, mask, rng)
             loss.backward()
+        loss = loss.detach()
+        if self._dp is not None:  # the sum of the shares' gradients: the global batch's
+            self._dp.reduce_gradients(self.model.parameters())
+            loss = self._dp.sum_(loss)
         opt.step()
-        return loss.detach()
+        return loss
 
     def _put(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device, non_blocking=True)
@@ -167,7 +200,8 @@ class Trainer:
         t = self.config["training"]
         losses: List[torch.Tensor] = []
         if bool(t.get("scan_epoch", False)):
-            batches = list(self.datamodule.train_batches(epoch=epoch))
+            batches = list(self.datamodule.train_batches(epoch=epoch,
+                                                         pad_to_multiple_of=self._data_multiple()))
             chunk = int(t.get("scan_epoch_chunk", 0) or 0) or max(len(batches), 1)
             for c0 in range(0, len(batches), chunk):
                 part = batches[c0: c0 + chunk]
@@ -177,7 +211,8 @@ class Trainer:
                     losses.append(self.train_step(stage, opt, poses_all[j], masks_all[j],
                                                   epoch * STEP_KEY_STRIDE + c0 + j))
         else:
-            for i, batch in enumerate(self.datamodule.train_batches(epoch=epoch)):
+            for i, batch in enumerate(self.datamodule.train_batches(
+                    epoch=epoch, pad_to_multiple_of=self._data_multiple())):
                 losses.append(self.train_step(stage, opt, self._put(batch["poses"]),
                                               self._put(batch["mask"]),
                                               epoch * STEP_KEY_STRIDE + i))
@@ -343,6 +378,8 @@ class Trainer:
             self.train_stage(1)
         self.train_stage(2)
 
+        if self.mesh_config is not None:
+            dist.barrier()  # rank 0's checkpoints are on disk before any rank reads them
         if self.ckpt.exists("stage2_best"):
             self.load_model_state(self.ckpt.path("stage2_best"))
         results = self.evaluate()
@@ -357,10 +394,11 @@ class Trainer:
             "score_stats": results["score_stats"],
         }
         out_dir = self.config["experiment"].get("checkpoint_dir", "checkpoints")
-        with open(os.path.join(out_dir, "training_history.json"), "w") as f:
-            json.dump(self.history, f, indent=2, default=float)
-        with open(os.path.join(out_dir, "training_results.json"), "w") as f:
-            json.dump(artifact, f, indent=2, default=float)
+        if self._writer:
+            with open(os.path.join(out_dir, "training_history.json"), "w") as f:
+                json.dump(self.history, f, indent=2, default=float)
+            with open(os.path.join(out_dir, "training_results.json"), "w") as f:
+                json.dump(artifact, f, indent=2, default=float)
         if self.logger:
             flat_hp = {
                 "lr": self.config["training"]["lr"],

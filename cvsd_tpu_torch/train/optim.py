@@ -127,6 +127,13 @@ class StageOptimizer:
         else:
             raise ValueError(f"unknown optimizer {name!r}")
 
+    def global_norm(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """The clip's norm over the present gradients (one per ``all_params``
+        entry, None where absent); a tensor-parallel step, whose parameters
+        are shards, overrides it (``parallel/dryrun.py``)."""
+        present = [g for g in grads if g is not None]
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+
     def step(self) -> bool:
         """One micro-step; returns True where it applied an update."""
         n = self.mini_step
@@ -154,8 +161,7 @@ class StageOptimizer:
         self._acc = [None] * len(self.all_params)
         self.mini_step = 0
         if self.max_norm > 0:
-            present = [g for g in grads if g is not None]
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+            norm = self.global_norm(grads)
             keep = norm < self.max_norm
             grads = [None if g is None else torch.where(keep, g, g / norm * self.max_norm)
                      for g in grads]

@@ -18,8 +18,10 @@ The reference's optimizer is ``optax.multi_transform`` of
 ``act_scale``s and ``set_to_zero`` over those. Here the ``act_scale``s are
 buffers, outside the optimizer: the clip's global norm is taken over the
 trained leaves only and Adam keeps no state for the frozen ones, as there.
-The loss, the assignment, the step loop and ``train_steps_scan`` (one
-host-to-device copy a chunk) are ``DetectorTrainer``'s; there is no EMA.
+The loss, the assignment, the step loop, ``train_steps_scan`` (one
+host-to-device copy a chunk) and the mesh (``mesh_config``: data-parallel,
+each rank's rows, the gradients summed) are ``DetectorTrainer``'s; there is
+no EMA.
 """
 
 from __future__ import annotations
@@ -31,13 +33,14 @@ import torch
 
 from cvsd_tpu_torch.models.detector_int8 import QuantPersonDetector
 from cvsd_tpu_torch.train.detector_train import DetectorTrainer, anchor_centers, clipped_adam
-from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, use_float32_math
+from cvsd_tpu_torch.utils.device import DeviceLike, use_float32_math
 from cvsd_tpu_torch.utils.weights import load_flax_variables
 
 
 class QATFineTuner(DetectorTrainer):
     """Fine-tuning of the fake-quant detector mirror on one device
-    (default: the CUDA card, raising without one). The model's weights come
+    (default: the CUDA card, raising without one) or data-parallel over
+    ``mesh_config`` (``DetectorTrainer``'s). The model's weights come
     from ``qat_variables`` (``prepare_qat``'s); ``variables`` gives them back
     as flax variables."""
 
@@ -45,13 +48,9 @@ class QATFineTuner(DetectorTrainer):
                  lr: float = 1e-4, obj_pos_weight: float = 3.0, kpt_weight: float = 0.05,
                  total_steps: int = 0, warmup_steps: int = 0, mesh_config: Any = None,
                  device: DeviceLike = None):
-        if mesh_config is not None:
-            raise NotImplementedError(
-                "mesh_config: the port fine-tunes on one device; a mesh waits for ROADMAP.md "
-                "section 1, item Parallel")
         if not getattr(qat_model, "qat", False):
             raise ValueError("model must be built with qat=True (qat_model_like)")
-        self.device = resolve_device(device)
+        self._init_mesh(mesh_config, device)
         use_float32_math()  # the fake-quant convolutions run in float32, not TF32
         torch.backends.cudnn.deterministic = True
         self.obj_pos_weight = float(obj_pos_weight)
@@ -59,7 +58,8 @@ class QATFineTuner(DetectorTrainer):
         self.ema_decay = 0.0
         self.ema_params = None
         self._ema_t = 0
-        self.model = load_flax_variables(qat_model, qat_variables).to(self.device).train()
+        self.model = self._replicated(
+            load_flax_variables(qat_model, qat_variables).to(self.device).train())
         centers, strides = anchor_centers(qat_model.img_size)
         self._centers = torch.from_numpy(centers).to(self.device)
         self._strides = torch.from_numpy(strides).to(self.device)

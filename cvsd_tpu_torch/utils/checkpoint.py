@@ -73,11 +73,14 @@ def checkpoint_config(path: str) -> Optional[Dict[str, Any]]:
 
 class CheckpointManager:
     """Stage-aware best/periodic/final checkpoint names,
-    ``stage{N}_{best,final,epoch{E}}.msgpack``."""
+    ``stage{N}_{best,final,epoch{E}}.msgpack``. ``write=False`` (a mesh's
+    ranks but 0) names the files and writes none."""
 
-    def __init__(self, directory: str, config: Optional[Dict[str, Any]] = None):
+    def __init__(self, directory: str, config: Optional[Dict[str, Any]] = None,
+                 write: bool = True):
         self.directory = directory
         self.config = config
+        self.write = write
         os.makedirs(directory, exist_ok=True)
 
     def path(self, name: str) -> str:
@@ -85,7 +88,8 @@ class CheckpointManager:
 
     def save(self, name: str, state: Any, **metadata: Any) -> str:
         p = self.path(name)
-        save_checkpoint(p, state, config=self.config, **metadata)
+        if self.write:
+            save_checkpoint(p, state, config=self.config, **metadata)
         return p
 
     def save_best(self, stage: int, state: Any, **metadata: Any) -> str:

@@ -2,7 +2,8 @@
 
 Each source under ``cvsd_tpu_torch/csrc/`` has a plain C interface and is
 compiled on first use into a shared library under ``csrc/build/`` (listed in
-``.gitignore``). The sources share the headers beside them (``*.cuh``). The
+``.gitignore``), or under ``$CVSD_COMPILE_CACHE_DIR``
+(``utils/compile_cache.py`` moves ``BUILD_DIR``). The sources share the headers beside them (``*.cuh``). The
 library's name carries a hash of the source, every header and the flags, so
 an edited source or header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU-only test host has no ``nvcc``.

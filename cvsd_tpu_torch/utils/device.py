@@ -2,11 +2,14 @@
 
 Every entry point takes ``device=None``, which means the CUDA card. With no
 card present that default raises: the port never falls back to the CPU on
-its own. Callers that want the CPU (the tests) ask for it explicitly.
+its own. Callers that want the CPU (the tests) ask for it explicitly. A
+rank that a launcher started (``LOCAL_RANK`` set, as by ``torchrun``) takes
+its own card, not every rank card 0.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -15,11 +18,14 @@ DeviceLike = Union[None, str, torch.device]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a card); anything else as given."""
+    """``None`` -> ``cuda`` (``cuda:<LOCAL_RANK>`` in a launched rank; raises
+    without a card); anything else as given."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on the CPU")
+        if "LOCAL_RANK" in os.environ:
+            return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         return torch.device("cuda")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -1,0 +1,106 @@
+"""Run the synthetic end-to-end chain at several training-set sizes and read
+what feeds its AUCs: the example detector's AP on held-out rendered scenes
+and the tracked windows the stream scores per held-out video.
+
+The reference's own rows (``RESULTS.md``, round-2 progression) move with
+the count of Shopformer training videos: 64 videos / 60 epochs 0.818,
+128 / 80 0.851, 256 / 100 0.935, 512 / 100 0.878 (window AUC). This script
+runs ``examples_torch/end_to_end_synthetic.py`` unchanged at the rows
+asked for, each into its own directory, and prints one JSON line per row.
+
+    python examples_torch/synthetic_auc_probe.py --out DIR --rows 64:60 128:80
+
+Each row retrains the detector and the pose net from the example's seed, so
+the detector rows say whether those stages repeat. Default device: the CUDA
+card. Needs cv2, as the example does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from collections import Counter
+from typing import Any, Dict, List
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+
+import end_to_end_synthetic as example  # noqa: E402
+from cvsd_tpu_torch.data.render import rendered_detection_batch  # noqa: E402
+from cvsd_tpu_torch.eval.detection import evaluate_detector  # noqa: E402
+from cvsd_tpu_torch.models.detector import load_detector_checkpoint, make_detect_fn  # noqa: E402
+from cvsd_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+HELD_OUT_SCENES = 256
+HELD_OUT_SEED = 4242
+
+
+def detector_readings(path: str, img_size: int, device) -> Dict[str, Any]:
+    """AP50, mAP50-95 and recall of a saved example detector on held-out
+    rendered scenes (one person each), at a low threshold for AP and at the
+    example's streaming threshold (conf 0.3, 4 detections) for recall."""
+    model, _variables, _meta = load_detector_checkpoint(path, device)
+    images, boxes, valid, _kpts = rendered_detection_batch(
+        np.random.default_rng(HELD_OUT_SEED), HELD_OUT_SCENES, img_size)
+    out = {}
+    for name, conf, max_det in (("ap", 0.01, 32), ("stream", 0.3, 4)):
+        res = evaluate_detector(make_detect_fn(model, conf, 0.45, max_det), images, boxes,
+                                valid, coco_map=True, device=device)
+        recall = np.asarray(res["recall"])
+        out[name] = {"ap50": float(res["ap"]), "map50_95": float(res["map50_95"]),
+                     "recall": float(recall[-1]) if recall.size else 0.0,
+                     "detections": int(res["num_pred"]), "people": int(res["num_gt"])}
+    return out
+
+
+def main(argv=None) -> List[Dict[str, Any]]:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--out", required=True)
+    p.add_argument("--rows", nargs="+", default=["64:60", "128:80"],
+                   help="train-videos:epochs pairs, one chain run each")
+    p.add_argument("--device", default=None)
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    rows = []
+    for row in args.rows:
+        n_videos, epochs = (int(x) for x in row.split(":"))
+        out = os.path.join(args.out, f"train{n_videos}_ep{epochs}")
+        captured: Dict[str, Any] = {}
+        stream_and_evaluate = example.stream_and_evaluate
+
+        def capture(*a, **k):
+            r = stream_and_evaluate(*a, **k)
+            captured["events"] = r["events"]
+            return r
+
+        example.stream_and_evaluate = capture
+        try:
+            flags = ["--train-videos", str(n_videos), "--epochs", str(epochs), "--out", out]
+            if args.device:
+                flags += ["--device", args.device]
+            results = example.main(flags)
+        finally:
+            example.stream_and_evaluate = stream_and_evaluate
+        per_video = Counter(e.video for e in captured["events"])
+        counts = [per_video.get(name, 0) for name in sorted(results["videos"])]
+        record = {
+            "train_videos": n_videos, "epochs": epochs,
+            "window_auc": results["extracted_pose_auc"],
+            "video_auc_offline": results["video_metrics"],
+            "streaming_video_auc": {k: v["video_auc"] for k, v in results["streaming"].items()},
+            "event_auc": results["streaming"]["max"]["event_auc"],
+            "windows": int(sum(counts)), "windows_per_video": counts,
+            "detector": detector_readings(os.path.join(out, "detector.msgpack"), 128, device),
+        }
+        rows.append(record)
+        print("probe_row " + json.dumps(record), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

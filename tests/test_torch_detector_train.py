@@ -25,7 +25,7 @@ from cvsd_tpu_torch.train.detector_train import (DetectorTrainer, anchor_centers
                                                  sigmoid_binary_cross_entropy,
                                                  synthetic_detection_batch)
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
-from torch_testutil import random_flax_variables
+from torch_testutil import cuda_mesh_config, random_flax_variables
 
 S = 64
 SMALL = dict(img_size=S, width_mult=0.25, depth_mult=0.34)
@@ -380,6 +380,9 @@ def test_checkpoints_byte_identical_and_loaded_both_ways(tmp_path, monkeypatch):
         assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_mesh_config_is_refused():
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        DetectorTrainer(_port_detector(), mesh_config=object(), device="cpu")
+def test_mesh_config_is_refused(tmp_path):
+    """A mesh whose rank runs on a card is refused without one, as the
+    trainer without a mesh is (the meshed trainer itself:
+    tests/test_torch_parallel_detector_train.py)."""
+    with cuda_mesh_config(tmp_path) as mc, pytest.raises(RuntimeError, match="CUDA"):
+        DetectorTrainer(_port_detector(), mesh_config=mc)

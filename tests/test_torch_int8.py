@@ -30,7 +30,7 @@ from cvsd_tpu_torch.ops.int8_conv import im2col_int8, int8_conv, int8_conv_gemm,
 from cvsd_tpu_torch.train.detector_train import detection_loss, synthetic_detection_batch
 from cvsd_tpu_torch.train.qat import QATFineTuner
 from cvsd_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
-from torch_testutil import random_flax_variables
+from torch_testutil import cuda_mesh_config, random_flax_variables
 
 S = 64
 SMALL = dict(img_size=S, width_mult=0.25, depth_mult=0.34)
@@ -333,11 +333,13 @@ def test_qat_step_matches_jax():
             assert after[k] == lj[k], k
 
 
-def test_qat_scan_equals_step_sequence_and_finalize():
+def test_qat_scan_equals_step_sequence_and_finalize(tmp_path):
     """train_steps_scan equals the same steps by train_step bit for bit
-    (losses and weights); a pose head without gt_kpts raises; finalize_qat's
-    serving forward stays within 0.02 of the fake-quant forward's largest
-    output (the JAX test's limit: bf16 casts between layers)."""
+    (losses and weights); a pose head without gt_kpts raises, and so does a
+    card's mesh on a host without a card (the meshed tuner itself:
+    tests/test_torch_parallel_detector_train.py); finalize_qat's serving
+    forward stays within 0.02 of the fake-quant forward's largest output
+    (the JAX test's limit: bf16 casts between layers)."""
     jm, variables, tm = _qat_pair(seed=6)
     qt, vt = tq.prepare_qat(tm, variables, _batches())
     rng = np.random.default_rng(1)
@@ -367,8 +369,8 @@ def test_qat_scan_equals_step_sequence_and_finalize():
         tuner.train_step(imgs, gb, gv)
     with pytest.raises(ValueError, match="gt_kpts"):
         tuner.train_steps_scan(imgs[None], gb[None], gv[None])
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        QATFineTuner(q17, vq17, device="cpu", mesh_config=object())
+    with cuda_mesh_config(tmp_path) as mc, pytest.raises(RuntimeError, match="CUDA"):
+        QATFineTuner(q17, vq17, mesh_config=mc)  # a card's mesh without a card
 
 
 # -- checkpoints and the CLIs ------------------------------------------------------------------
@@ -426,6 +428,34 @@ def test_quantize_cli_both_directions(tmp_path, capsys):
     raw = qm.apply(qv, jnp.asarray(_batches(1)[0]))
     assert set(raw) == {"p3", "p4", "p5"}
     assert np.asarray(qv["params"]["Backbone_0"]["ConvBNAct_0"]["w_int8"]).dtype == np.int8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_cli_once_cast_model_writes_the_same_bytes(tmp_path, monkeypatch, dtype):
+    """cli.quantize_detector builds its detector once in the checkpoint's
+    dtype (``_calibration_model``); the file it writes is byte-identical to
+    the one written from ``load_detector_checkpoint``'s float32 master
+    weights (the CLI before), in float32 and in bfloat16, QAT included: the
+    float module only lends the int8 mirror its hyperparameters and device."""
+    import cvsd_tpu_torch.cli.quantize_detector as qcli
+
+    jm = PersonDetectorJax(**SMALL, num_keypoints=17, dtype=jnp.float32)
+    variables = random_flax_variables(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, S, S, 3)), train=False),
+        10)
+    src = str(tmp_path / "det.msgpack")
+    save_checkpoint_jax(src, jax.device_get(variables), config={"detector": {**DET_CFG,
+                                                                              "dtype": dtype}})
+    args = ["--detector_checkpoint", src, "--calib_frames", "4", "--calib_batch", "2",
+            "--qat_steps", "1", "--qat_batch", "2", "--device", "cpu"]
+    model, _v, _m = qcli._calibration_model(src, "cpu")
+    assert next(model.parameters()).dtype == getattr(torch, dtype)
+    qcli.main(args + ["--output", str(tmp_path / "once.msgpack")])
+    monkeypatch.setattr(qcli, "_calibration_model",
+                        lambda path, dev: load_detector_checkpoint(path, dev))
+    qcli.main(args + ["--output", str(tmp_path / "master.msgpack")])
+    once = (tmp_path / "once.msgpack").read_bytes()
+    assert once == (tmp_path / "master.msgpack").read_bytes()
 
 
 def test_quantize_cli_calibrates_on_videos(tmp_path):

@@ -51,11 +51,38 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
         print("BAD", bad)
         n = sum(1 for m in sys.modules if m.startswith("cvsd_tpu_torch."))
         print("PORT_MODULES", n)
+        print("PARALLEL", sorted(m for m in sys.modules
+                                 if m.startswith(("cvsd_tpu_torch.parallel",
+                                                  "cvsd_tpu_torch.utils.compile_cache"))))
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     assert r.stdout.count("EXAMPLE examples_torch/") == len(list(REPO.glob("examples_torch/*.py")))
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 79
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 84
+    # the parallel layer and the compile cache are counted (slice 10)
+    assert r.stdout.split("PARALLEL")[1].split("\n")[0].strip() == str(sorted([
+        "cvsd_tpu_torch.parallel", "cvsd_tpu_torch.parallel.distributed",
+        "cvsd_tpu_torch.parallel.dryrun", "cvsd_tpu_torch.parallel.mesh",
+        "cvsd_tpu_torch.utils.compile_cache"]))
+
+
+def test_cuda_mesh_raises_without_cuda(tmp_path):
+    """A card's mesh (NCCL's device type) on a host without a card raises in
+    MeshConfig.from_config; nothing falls back to the CPU."""
+    r = _run(f"""
+        import os, torch, torch.distributed as dist
+        assert not torch.cuda.is_available()
+        from cvsd_tpu_torch.parallel.mesh import MeshConfig
+        dist.init_process_group("gloo", store=dist.FileStore("{tmp_path}/s", 1), rank=0,
+                                world_size=1)
+        try:
+            MeshConfig.from_config({{}}, device_type="cuda")
+        except RuntimeError as e:
+            print("REFUSED", "CUDA" in str(e))
+        dist.destroy_process_group()
+    """)
+    assert r.returncode == 0, r.stderr
+    assert "REFUSED True" in r.stdout, r.stdout
 
 
 def test_default_device_raises_without_cuda():

@@ -13,10 +13,10 @@ import pytest
 
 JAX_ONLY = {"nms_jax", "nms_fixpoint_jax", "nms_pallas", "nms_pallas_fixpoint", "TrainState",
             "PositionalEncoding"}
-# every subpackage of the reference but parallel/ and native/, which the port
-# does not have yet (ROADMAP.md)
-SUBPACKAGES = ["", "cli", "config", "data", "eval", "infer", "models", "ops", "pipeline", "serve",
-               "sweep", "track", "train", "utils", "viz"]
+# every subpackage of the reference but native/, which the port does not
+# have yet (ROADMAP.md)
+SUBPACKAGES = ["", "cli", "config", "data", "eval", "infer", "models", "ops", "parallel",
+               "pipeline", "serve", "sweep", "track", "train", "utils", "viz"]
 
 
 def _exported(package: str) -> set:

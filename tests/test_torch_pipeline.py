@@ -15,7 +15,7 @@ from cvsd_tpu_torch.config import get_default_config
 from cvsd_tpu_torch.models.detector import build_detector
 from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict
-from torch_testutil import random_flax_variables
+from torch_testutil import cuda_mesh_config, random_flax_variables
 
 S = 128
 DET = dict(img_size=S, width_mult=0.25, depth_mult=0.34, dtype="float32", pose_head=True,
@@ -80,11 +80,14 @@ def test_detect_frames_takes_a_tensor(weights, frames):
         np.testing.assert_array_equal(g, r)
 
 
-def test_unported_pipeline_options_raise():
+def test_unported_pipeline_options_raise(tmp_path):
+    """A card's mesh raises on a host without a card, as the pipeline
+    without a mesh does (the meshed pipeline itself:
+    tests/test_torch_parallel_detection.py)."""
     cfg = get_default_config()
     cfg["detector"].update(DET)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectionPipeline(cfg, device="cpu", mesh_config=object())
+    with cuda_mesh_config(tmp_path) as mc, pytest.raises(RuntimeError, match="CUDA"):
+        DetectionPipeline(cfg, mesh_config=mc)
     # topdown pose and its checkpoint are ported: the pipeline reads the file
     # (test_torch_load_model.py holds the loaded net against JAX)
     cfg["detector"].update(pose_mode="topdown", pose_topdown_checkpoint="no/such/pose.msgpack")

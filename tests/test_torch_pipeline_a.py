@@ -31,7 +31,7 @@ from cvsd_tpu_torch.data.video import write_test_video
 from cvsd_tpu_torch.models.detector import build_detector
 from cvsd_tpu_torch.pipeline import preprocess
 from cvsd_tpu_torch.utils.weights import flax_to_state_dict
-from torch_testutil import random_flax_variables
+from torch_testutil import cuda_mesh_config, random_flax_variables
 
 # the JAX package's Pipeline-A fixture detector (tests/test_pipeline_a.py)
 S = 128
@@ -248,11 +248,14 @@ def test_preprocess_cli_matches_library(ucf_dir, tmp_path, capsys):
         assert _read(os.path.join(lib_dir, name)) == _read(os.path.join(cli_dir, name))
 
 
-def test_unported_options_raise(ucf_dir, tmp_path):
+def test_unported_options_raise(ucf_dir, tmp_path, tmp_path_factory):
+    """native_decode is refused; a card's mesh raises on a host without a
+    card before any file is written (meshed preprocessing itself:
+    tests/test_torch_parallel_detection.py)."""
     _cfg_j, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        preprocess.preprocess_ucf_crime(cfg, ucf_dir, output_dir=str(tmp_path), device="cpu",
-                                        mesh_config=object())
+    with cuda_mesh_config(tmp_path_factory.mktemp("mesh")) as mc, \
+            pytest.raises(RuntimeError, match="CUDA"):
+        preprocess.preprocess_ucf_crime(cfg, ucf_dir, output_dir=str(tmp_path), mesh_config=mc)
     cfg["detector"]["native_decode"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         preprocess.preprocess_ucf_crime(cfg, ucf_dir, output_dir=str(tmp_path), device="cpu")

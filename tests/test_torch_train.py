@@ -32,7 +32,7 @@ from cvsd_tpu_torch.models.transformer import MultiHeadDotProductAttention
 from cvsd_tpu_torch.train import optim
 from cvsd_tpu_torch.train.loop import Trainer, train_from_config
 from cvsd_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
-from torch_testutil import random_flax_variables
+from torch_testutil import cuda_mesh_config, random_flax_variables
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -682,12 +682,13 @@ def test_max_seconds_abort_on_nan_and_zero_epoch_stage(jax_run, tmp_path):
 
 
 def test_train_from_config_and_mesh_config(jax_run, tmp_path):
-    """train_from_config runs a whole fit on the given device; a mesh
-    raises NotImplementedError naming the ROADMAP item."""
+    """train_from_config runs a whole fit on the given device; a card's
+    mesh raises on a host without a card (the meshed trainer itself:
+    tests/test_torch_parallel_shopformer.py)."""
     cfg = copy.deepcopy(jax_run["cfg"])
     cfg["experiment"]["checkpoint_dir"] = str(tmp_path / "t")
     cfg["training"].update(stage1_epochs=1, stage2_epochs=1)
     art = train_from_config(cfg, verbose=False, device="cpu")
     assert len(art["history"]["stage2"]) == 1 and 0.0 <= art["best_auc"] <= 1.0
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        Trainer(cfg, mesh_config=object(), device="cpu")
+    with cuda_mesh_config(tmp_path) as mc, pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, mesh_config=mc)

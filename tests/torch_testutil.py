@@ -1,6 +1,7 @@
 """Helpers shared by the port's parity tests (``tests/test_torch_*.py``).
 Not collected as tests: the file name does not start with ``test_``."""
 
+import contextlib
 import os
 
 import jax
@@ -30,6 +31,24 @@ def random_flax_variables(init_fn, seed, conv1d=False):
         return (rng.normal(0, 1, shape) / np.sqrt(fan_in)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
+
+
+@contextlib.contextmanager
+def cuda_mesh_config(tmp_path):
+    """A one-rank gloo group and a MeshConfig over it whose rank runs on
+    cuda:0: an entry point given it (and no device) raises on a host
+    without a card, as it does without a mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from cvsd_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "cuda_mesh.store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield MeshConfig(build_mesh((1,), ("data",), "cpu"), device=torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
 
 
 def write_yolo_layout(root, n=7, w=96, h=64, kpts=4):
