@@ -134,15 +134,16 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      (EXAMPLE_FLAGS): each stage's seconds, every AUC of the results JSON
      (finite; no bar at this size), frames/s, scored windows and the child's
      nms_fixpoint launches (without cv2 each must exit naming cv2)
-  16. parallel: a one-rank NCCL group and its mesh on the card; the meshed
+  16. parallel: a one-rank NCCL group and its mesh on the card, and a
+     two-rank gloo group of two processes on the one card whose meshed
+     full-width detection gathers the unmeshed halves bit for bit; the meshed
      DetectionPipeline at full width on phase 3's frames bit-equal to the
      unmeshed one (one nms_fixpoint launch a batch, ms per batch both ways);
      the production configuration streamed meshed == unmeshed; a
      full-width DetectorTrainer step and paper.yaml Shopformer steps meshed
      == unmeshed bit for bit; ``python -m cvsd_tpu_torch.parallel.dryrun
      4`` on the CPU; the compile cache cold (nvcc) and warm (no nvcc) in
-     two subprocesses; the quantize CLI's calibration from the float32 and
-     the once-cast module, in turns
+     two subprocesses
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line,
      with each kernel's launches in every counted run, ``launches_parallel``
      included), then the result line
@@ -3350,8 +3351,8 @@ def drive_examples(tmp: str, card: str) -> tuple:
 PAR_ITERS = 10  # B=128 detect batches, meshed and unmeshed, of phase 3's frames
 PAR_STREAMS = 4  # in-memory 320x240 streams of PROD_FRAMES frames, production config
 PAR_SF_WINDOWS = 512  # synthetic windows for the paper.yaml Shopformer steps
+PAR_GLOO_ITERS = 4  # meshed B=128 batches of the two gloo ranks on the one card
 PAR_SF_STEPS = 8  # stage-1 micro-steps (two optimizer updates at grad_accum 4), then 4 stage-2
-CALIB_BATCHES = 4  # fault 2: the quantize CLI's synthetic calibration, batches of 16 at 640
 CACHE_CHILD = r"""
 import json, sys, time
 t0 = time.perf_counter()
@@ -3376,15 +3377,70 @@ print("CACHE " + json.dumps({"to_first_launch_s": time.perf_counter() - t0,
 """
 
 
+def gloo_cuda_rank() -> dict:
+    """One rank of phase 16's two-rank gloo group, both ranks on cuda:0 (a
+    spawned process). The meshed DetectionPipeline at full width (v5m 640
+    bf16 pose head) replicates rank 0's detector by broadcast, detects its
+    64 rows of phase 3's first B=128 batch and all-gathers the outputs, all
+    over gloo on CUDA tensors; the gathered batch must equal, bit for bit,
+    the unmeshed pipeline's on each half (B=64, the shape each rank ran).
+    Also a gradient sum and a differentiable all_sum over the two ranks."""
+    import torch.distributed as dist
+
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.models.detector import build_detector
+    from cvsd_tpu_torch.ops import nms as nms_mod
+    from cvsd_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+
+    rank = dist.get_rank()
+    mc = MeshConfig(build_mesh((2,), ("data",), device_type="cuda"))
+    dev = mc.device
+    group = mc.data_group()
+    if dev != torch.device("cuda", 0) or group.size != 2:
+        raise RuntimeError(f"rank {rank}: mesh on {dev}, data axis {group.size}")
+    cfg = get_default_config()
+    cfg["detector"]["pose_head"] = True
+    # each rank draws its own weights; the meshed pipeline broadcasts rank 0's
+    state = build_detector(cfg, device=dev, seed=80 + rank).state_dict()
+    meshed = DetectionPipeline(cfg, state_dict=state, mesh_config=mc)
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (128, 240, 320, 3)).astype(np.uint8)).to(dev)
+    meshed.fetch_detections(meshed.detect_frames_async(frames))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(nms_mod)
+    t0 = time.perf_counter()
+    res = [meshed.detect_frames_async(frames) for _ in range(PAR_GLOO_ITERS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches(nms_mod)
+    got = meshed.fetch_detections(res[-1])
+    plain = DetectionPipeline(cfg, state_dict=meshed.model.state_dict(), device=dev)
+    halves = [plain.fetch_detections(plain.detect_frames_async(frames[i:i + 64]))
+              for i in (0, 64)]
+    equal = all(np.array_equal(g, np.concatenate([h[j] for h in halves]))
+                for j, g in enumerate(got))
+    # gradients summed over the group (rank + 1 on each rank: 1 + 2 = 3)
+    p = torch.nn.Parameter(torch.zeros(1000, device=dev))
+    p.grad = torch.full_like(p, float(rank + 1))
+    group.reduce_gradients([p])
+    x = torch.full((4,), float(rank + 1), device=dev, requires_grad=True)
+    group.all_sum(x).sum().backward()
+    sums = [float(p.grad.min()), float(p.grad.max()), float(x.grad.min()), float(x.grad.max())]
+    return {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+            "bit_equal_to_unmeshed_halves": bool(equal), "launches": counts,
+            "seconds": seconds, "grad_sums": sums}
+
+
 def _same_tree(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
 def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple:
-    """16. The parallel layer on the card (one card: a one-rank NCCL group;
-    NCCL refuses two ranks on one device, and gloo's CUDA all_gather is not
-    what the meshed pipeline calls, so no two-rank group runs here). (a)
-    The group and its MeshConfig (cuda:0). (b) The meshed DetectionPipeline
+    """16. The parallel layer on the card. (a) A one-rank NCCL group and its
+    MeshConfig (cuda:0); NCCL refuses two ranks on one device, so (a2), after
+    (d), forms a two-rank gloo group of spawned processes on cuda:0
+    (``gloo_cuda_rank``), whose collectives do real work on CUDA tensors. (b) The meshed DetectionPipeline
     at full width (v5m 640 bf16 pose head) on phase 3's B=128 frames:
     outputs bit-equal to the unmeshed pipeline's, one nms_fixpoint launch a
     batch, ms per batch both ways in turns. (c) The production configuration
@@ -3395,26 +3451,19 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
     as a subprocess. (f) The compile cache: nvcc into a fresh
     CVSD_COMPILE_CACHE_DIR in one subprocess, then a second one loads the
     library without nvcc (nvcc made to fail there): each one's time from
-    its start to its first kernel launch. (g) Fault 2: cli.quantize_detector's
-    calibration from load_detector_checkpoint's float32 module (the CLI
-    before) and from the once-cast module (after), three each in turns,
-    with the same int8 variables."""
+    its start to its first kernel launch."""
     import torch.distributed as dist
 
-    from cvsd_tpu_torch.cli.quantize_detector import _calibration_model, _synthetic_batches
     from cvsd_tpu_torch.config import get_default_config, load_config
     from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
-    from cvsd_tpu_torch.models.detector import (build_detector, detector_from_config,
-                                                load_detector_checkpoint)
-    from cvsd_tpu_torch.models.detector_int8 import quantize_detector
+    from cvsd_tpu_torch.models.detector import build_detector, detector_from_config
     from cvsd_tpu_torch.models.shopformer import build_shopformer
     from cvsd_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
     from cvsd_tpu_torch.pipeline.streaming import ArraySource, RoundRobinReader, StreamingPipeline
     from cvsd_tpu_torch.train.detector_train import DetectorTrainer
+    from cvsd_tpu_torch.parallel.distributed import spawn_world
     from cvsd_tpu_torch.train.loop import Trainer
-    from cvsd_tpu_torch.utils.checkpoint import save_checkpoint
-    from cvsd_tpu_torch.utils.weights import state_dict_to_flax
 
     root = os.path.dirname(os.path.abspath(__file__))
     out, counts = {}, {}
@@ -3424,10 +3473,7 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
     try:
         mc = MeshConfig(build_mesh((1,), ("data",)))
         out["group"] = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
-                        "device": str(mc.device), "mesh": list(mc.mesh.mesh.shape),
-                        "two_ranks_on_one_card": "not run: NCCL refuses two ranks on one "
-                                                 "device; the pipeline's all_gather on CUDA "
-                                                 "tensors is not gloo's"}
+                        "device": str(mc.device), "mesh": list(mc.mesh.mesh.shape)}
         log(f"[parallel] (a) {json.dumps(out['group'])}")
         if mc.device != torch.device("cuda", 0) or dist.get_backend() != "nccl":
             fail(f"the one-rank NCCL mesh put its rank on {mc.device} ({dist.get_backend()})")
@@ -3552,6 +3598,32 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
     finally:
         dist.destroy_process_group()
 
+    # -- (a2) two gloo ranks on the one card ---------------------------------------
+    torch.cuda.empty_cache()
+    store = os.path.join(tmp, "gloo2")
+    os.makedirs(store)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_world(gloo_cuda_rank, 2, store_dir=store, timeout=300)
+    except Exception as e:  # noqa: BLE001 (the error is the reading)
+        fail(f"[parallel] (a2) two gloo ranks on cuda:0 raised {type(e).__name__}: {e}")
+    for r in ranks:
+        if not r["bit_equal_to_unmeshed_halves"]:
+            fail(f"[parallel] (a2) rank {r['rank']}'s gathered detections are not the unmeshed "
+                 f"pipeline's on the two halves")
+        if r["launches"] != {"nms_fixpoint": PAR_GLOO_ITERS, "nms_seq": 0, "nms_seq_multi": 0}:
+            fail(f"[parallel] (a2) rank {r['rank']} launched {r['launches']}: expected one "
+                 f"nms_fixpoint a batch")
+        if r["grad_sums"] != [3.0, 3.0, 2.0, 2.0]:
+            fail(f"[parallel] (a2) rank {r['rank']}'s sums over the group read {r['grad_sums']}")
+    counts["detect_gloo2"] = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    out["gloo2"] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+    log(f"[parallel] (a2) two gloo ranks on cuda:0 ({ranks[0]['backend']}): meshed v5m 640 "
+        f"bf16 pose B=128 gathered == unmeshed halves bit for bit on both ranks; "
+        f"{PAR_GLOO_ITERS} batches in {ranks[0]['seconds']:.3f} / {ranks[1]['seconds']:.3f} s; "
+        f"nms launches {counts['detect_gloo2']}; gradient and all_sum sums right; "
+        f"{out['gloo2']['seconds']:.1f} s with the processes' start [{card}]")
+
     # -- (e) the dry run on 4 gloo processes of the CPU ------------------------------
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "cvsd_tpu_torch.parallel.dryrun", "4"], cwd=root,
@@ -3586,32 +3658,6 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
         f"(no nvcc); imports {runs['cold']['import_s']:.2f} / {runs['warm']['import_s']:.2f} s "
         f"[{card}]")
 
-    # -- (g) fault 2: the quantize CLI's calibration, before and after --------------------
-    qcfg = get_default_config()
-    qcfg["detector"]["pose_head"] = True
-    path = os.path.join(tmp, "det_bf16.msgpack")
-    save_checkpoint(path, state_dict_to_flax(build_detector(qcfg, device=dev, seed=76)),
-                    config={"detector": dict(qcfg["detector"])})
-    batches = _synthetic_batches(int(qcfg["detector"]["img_size"]), 16, CALIB_BATCHES)
-    calib = {"before": [], "after": []}
-    scales = {}
-    for tag in ("before", "after", "after", "before", "before", "after"):
-        model, variables, _meta = (load_detector_checkpoint(path, dev) if tag == "before"
-                                   else _calibration_model(path, dev))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _q, qv = quantize_detector(model, variables, batches)
-        torch.cuda.synchronize()
-        calib[tag].append(time.perf_counter() - t0)
-        scales[tag] = {k: np.asarray(v) for k, v in flat_leaves(qv)}
-        del model, _q
-    if scales["before"].keys() != scales["after"].keys() or not all(
-            np.array_equal(scales["before"][k], scales["after"][k]) for k in scales["before"]):
-        fail("the once-cast calibration module gives other int8 variables than the float32 one")
-    out["quantize_calibration_s"] = calib
-    log(f"[parallel] (g) fault 2: quantize_detector calibration on {CALIB_BATCHES} x 16 "
-        f"frames at 640, seconds in turns: float32 module (before) {calib['before']}, once-cast "
-        f"bf16 module (after) {calib['after']}; int8 variables equal [{card}]")
     return out, counts
 
 

@@ -4,7 +4,7 @@ detector checkpoints (the port's copy of ``cvsd_tpu/cli/common.py``).
 ``--device`` takes the place of the JAX CLIs' ``JAX_PLATFORMS``: unset, the
 entry points run on the CUDA card and raise without one; ``--device cpu``
 runs them on the host. ``maybe_mesh`` gives a process launched by
-``torchrun`` with several ranks its data-parallel mesh.
+``torchrun`` with several ranks its data-parallel mesh on that device.
 """
 
 from __future__ import annotations
@@ -88,18 +88,27 @@ def load_detector_cli(path: str, cfg: Dict[str, Any], overrides=None
     return flax_to_state_dict(variables, template), cfg
 
 
-def maybe_mesh(cfg: Dict[str, Any]):
+def maybe_mesh(cfg: Dict[str, Any], device=None):
     """A MeshConfig when the process is one of several ranks (``WORLD_SIZE``
     > 1, as ``torchrun`` sets it): the counterpart of the JAX CLIs' "more
-    than one device visible". Joins the process group from the launcher's
-    environment first where nobody has (NCCL with a card, gloo without).
-    None otherwise."""
+    than one device visible". None otherwise.
+
+    The group follows the device the caller asked for, as the unmeshed
+    entry points do: ``device='cpu'`` joins a gloo group on the host;
+    anything else (unset: the card) joins an NCCL group and raises without
+    a card. Joins the group from the launcher's environment where nobody
+    has."""
     import torch.distributed as dist
 
     from cvsd_tpu_torch.parallel.mesh import MeshConfig
+    from cvsd_tpu_torch.utils.device import resolve_device
 
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return None
+    device_type = "cpu" if resolve_device(device).type == "cpu" else "cuda"
     if not dist.is_initialized():
-        dist.init_process_group(backend="nccl" if torch.cuda.is_available() else "gloo")
-    return MeshConfig.from_config(cfg)
+        dist.init_process_group(backend="gloo" if device_type == "cpu" else "nccl")
+    elif device_type == "cpu" and "gloo" not in dist.get_backend():
+        raise RuntimeError(f"device 'cpu' needs a gloo group; this process joined "
+                           f"{dist.get_backend()!r}")
+    return MeshConfig.from_config(cfg, device_type=device_type)

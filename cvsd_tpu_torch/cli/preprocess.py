@@ -41,7 +41,7 @@ def main(argv=None) -> None:
     stats = preprocess_ucf_crime(cfg, args.dataset_dir, output_dir=args.output_dir,
                                  category_filter=args.categories, limit=args.limit,
                                  state_dict=state_dict, device=args.device,
-                                 mesh_config=maybe_mesh(cfg))
+                                 mesh_config=maybe_mesh(cfg, args.device))
     print(json.dumps(stats, indent=2, default=str))
 
 

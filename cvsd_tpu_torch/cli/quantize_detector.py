@@ -52,29 +52,6 @@ def _letterboxed_batches(videos, size: int, batch: int, max_frames: int):
     return [arr[i:i + batch] for i in range(0, len(arr), batch)]
 
 
-def _calibration_model(path: str, device):
-    """(model, variables, meta) of a float detector checkpoint, the model
-    built once in its configured dtype (as ``load_detector_cli`` and
-    ``build_detector`` build the serving detectors), not
-    ``load_detector_checkpoint``'s float32 master weights: only its
-    hyperparameters and device reach the int8 mirror, whose calibration
-    forwards run in float32 from the checkpoint's own variables."""
-    import torch
-
-    from cvsd_tpu_torch.models.detector import build_detector, detector_from_config
-    from cvsd_tpu_torch.utils.checkpoint import load_checkpoint
-    from cvsd_tpu_torch.utils.weights import flax_to_state_dict
-
-    variables, meta = load_checkpoint(path)
-    cfg = (meta or {}).get("config") or {}
-    if (cfg.get("detector") or {}).get("quantized"):
-        raise SystemExit(f"{path} is already quantized")
-    with torch.device("meta"):
-        template = detector_from_config(cfg)
-    model = build_detector(cfg, device, state_dict=flax_to_state_dict(variables, template))
-    return model, variables, meta
-
-
 def _synthetic_batches(size: int, batch: int, n_batches: int):
     import numpy as np
 
@@ -109,13 +86,16 @@ def main(argv=None) -> None:
                         "'cpu' runs on the host)")
     args = p.parse_args(argv)
 
+    from cvsd_tpu_torch.models.detector import load_detector_checkpoint
     from cvsd_tpu_torch.models.detector_int8 import quantize_detector
     from cvsd_tpu_torch.utils.checkpoint import save_checkpoint
     from cvsd_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)  # a missing card is reported before any file is read
-    model, variables, meta = _calibration_model(args.detector_checkpoint, dev)
+    model, variables, meta = load_detector_checkpoint(args.detector_checkpoint, dev)
     det_cfg = dict(((meta or {}).get("config") or {}).get("detector") or {})
+    if det_cfg.get("quantized"):
+        raise SystemExit(f"{args.detector_checkpoint} is already quantized")
     size = args.calib_size or model.img_size
     if args.calib_video:
         batches = _letterboxed_batches(args.calib_video, size,

@@ -69,7 +69,7 @@ def main(argv=None) -> None:
     scorer.config = cfg
     # multi-rank streaming: shard multiplexed frame batches over the mesh's
     # data axis when launched as several ranks (disable with --no_mesh)
-    mesh_config = None if args.no_mesh else maybe_mesh(cfg)
+    mesh_config = None if args.no_mesh else maybe_mesh(cfg, args.device)
     writer = writes(mesh_config)
     pipe = StreamingPipeline(cfg, scorer, detector_state_dict=detector_state_dict,
                              device=args.device, mesh_config=mesh_config)

@@ -53,7 +53,7 @@ def main(argv=None) -> None:
     from cvsd_tpu_torch.utils.logging import device_trace
 
     with device_trace(args.profile):
-        train_from_config(cfg, mesh_config=maybe_mesh(cfg), start_stage=args.stage,
+        train_from_config(cfg, mesh_config=maybe_mesh(cfg, device), start_stage=args.stage,
                           resume_checkpoint=args.checkpoint, device=device)
 
 

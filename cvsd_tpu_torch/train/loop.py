@@ -314,7 +314,7 @@ class Trainer:
                 if "auc_roc" in record:
                     msg += f" auc={record['auc_roc']:.4f}"
                 print(msg + f" ({dt:.1f}s)")
-            if deadline is not None and time.perf_counter() > deadline:
+            if self._past(deadline):
                 record["aborted"] = "max_seconds exceeded"
                 self.timed_out = True
                 if self.verbose:
@@ -325,6 +325,20 @@ class Trainer:
         self.ckpt.save_final(stage, self._ckpt_state(), metrics={"loss": epoch_loss},
                              history=self.history)
         return opt
+
+    def _past(self, deadline: Optional[float]) -> bool:
+        """Whether the run is past its wall-clock deadline. Under a mesh the
+        ranks decide together (one rank past it stops them all): a rank that
+        left the stage alone would pair its collectives with another rank's
+        steps. The deadline is set on every rank or on none."""
+        if deadline is None:
+            return False
+        late = time.perf_counter() > deadline
+        if self.mesh_config is None:
+            return late
+        flag = torch.tensor([int(late)], device=self.mesh_config.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def _ckpt_state(self) -> Dict[str, Any]:
         """The model as flax variables ({params, batch_stats}) on the host."""

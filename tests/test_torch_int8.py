@@ -430,34 +430,6 @@ def test_quantize_cli_both_directions(tmp_path, capsys):
     assert np.asarray(qv["params"]["Backbone_0"]["ConvBNAct_0"]["w_int8"]).dtype == np.int8
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_quantize_cli_once_cast_model_writes_the_same_bytes(tmp_path, monkeypatch, dtype):
-    """cli.quantize_detector builds its detector once in the checkpoint's
-    dtype (``_calibration_model``); the file it writes is byte-identical to
-    the one written from ``load_detector_checkpoint``'s float32 master
-    weights (the CLI before), in float32 and in bfloat16, QAT included: the
-    float module only lends the int8 mirror its hyperparameters and device."""
-    import cvsd_tpu_torch.cli.quantize_detector as qcli
-
-    jm = PersonDetectorJax(**SMALL, num_keypoints=17, dtype=jnp.float32)
-    variables = random_flax_variables(
-        lambda: jm.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, S, S, 3)), train=False),
-        10)
-    src = str(tmp_path / "det.msgpack")
-    save_checkpoint_jax(src, jax.device_get(variables), config={"detector": {**DET_CFG,
-                                                                              "dtype": dtype}})
-    args = ["--detector_checkpoint", src, "--calib_frames", "4", "--calib_batch", "2",
-            "--qat_steps", "1", "--qat_batch", "2", "--device", "cpu"]
-    model, _v, _m = qcli._calibration_model(src, "cpu")
-    assert next(model.parameters()).dtype == getattr(torch, dtype)
-    qcli.main(args + ["--output", str(tmp_path / "once.msgpack")])
-    monkeypatch.setattr(qcli, "_calibration_model",
-                        lambda path, dev: load_detector_checkpoint(path, dev))
-    qcli.main(args + ["--output", str(tmp_path / "master.msgpack")])
-    once = (tmp_path / "once.msgpack").read_bytes()
-    assert once == (tmp_path / "master.msgpack").read_bytes()
-
-
 def test_quantize_cli_calibrates_on_videos(tmp_path):
     """--calib_video: the frames decoded with cv2 and letterboxed on the host,
     as the JAX CLI's; the act_scales equal those of calibrating on the same

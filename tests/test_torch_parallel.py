@@ -137,6 +137,84 @@ def test_maybe_mesh_none_without_world_size(monkeypatch):
     assert not dist.is_initialized()
 
 
+def test_maybe_mesh_without_a_card_raises_unless_the_cpu_was_asked(monkeypatch):
+    """WORLD_SIZE > 1 and no device asked for: the mesh is the card's, so it
+    raises on a host without one, before any group forms, as the unmeshed
+    entry points do; nothing falls back to a gloo group on the CPU."""
+    from cvsd_tpu_torch.cli.common import maybe_mesh
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:1"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            maybe_mesh({}, device)
+    assert not dist.is_initialized()
+
+
+def _maybe_mesh_children(tmp_path, device_arg):
+    """Two fresh processes launched as torchrun launches its ranks
+    (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR/PORT), each calling
+    maybe_mesh(cfg, device_arg) with no card visible; their results."""
+    import socket
+
+    child = (
+        "import sys, torch.distributed as dist\n"
+        "from cvsd_tpu_torch.cli.common import maybe_mesh\n"
+        "mc = maybe_mesh({}, None if sys.argv[1] == 'none' else sys.argv[1])\n"
+        "g = mc.data_group()\n"
+        "print('MESH', dist.get_backend(), mc.mesh.device_type, mc.device, g.size, g.rank,\n"
+        "      mc.is_writer)\n"
+        "dist.destroy_process_group()\n")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": "", "WORLD_SIZE": "2",
+               "RANK": str(rank), "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
+        procs.append(subprocess.Popen([sys.executable, "-c", child, device_arg], env=env,
+                                      cwd=str(tmp_path), stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def test_maybe_mesh_joins_a_gloo_group_when_the_cpu_is_asked(tmp_path):
+    """device='cpu' in a launched rank: maybe_mesh joins the launcher's
+    group over gloo itself, and the mesh and its device are the CPU's;
+    rank 0 alone writes."""
+    outs = _maybe_mesh_children(tmp_path, "cpu")
+    for rank, (rc, out, err) in enumerate(outs):
+        assert rc == 0, err[-2000:]
+        line = next(x for x in out.splitlines() if x.startswith("MESH "))
+        assert line.split()[1:] == ["gloo", "cpu", "cpu", "2", str(rank), str(rank == 0)]
+
+
+def test_meshed_preprocess_cli_without_a_card_raises(tmp_path):
+    """cli.preprocess launched as one of two ranks with no --device on a
+    host without a card raises naming the missing device, as the unmeshed
+    command does; it runs no detection on the CPU."""
+    (tmp_path / "dataset").mkdir()
+    env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": "", "WORLD_SIZE": "2",
+           "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"}
+    r = subprocess.run([sys.executable, "-m", "cvsd_tpu_torch.cli.preprocess", "--dataset_dir",
+                        str(tmp_path / "dataset"), "--output_dir", str(tmp_path / "csvs")],
+                       env=env, cwd=str(tmp_path), capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "RuntimeError: no CUDA device is available" in r.stderr, r.stderr[-2000:]
+    assert not (tmp_path / "csvs").exists()
+
+
 def test_dryrun_four_processes(capsys):
     """The dry run's three phases on 4 gloo processes: mesh (2, 2), both TP
     phases' losses within rtol 1e-4 of the unsharded steps' (raised inside

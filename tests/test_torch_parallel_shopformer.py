@@ -197,3 +197,37 @@ def test_one_rank_mesh_is_bit_equal_to_no_mesh(runs, tmp_path):
         assert g.keys() == r.keys()
         for k in r:
             np.testing.assert_array_equal(g[k], r[k], err_msg=k)
+
+
+def _deadline_world(root):
+    """A meshed fit of up to 3 + 3 epochs in which rank 1 is past its
+    wall-clock deadline from the start and rank 0 has an hour left: each
+    rank's (per-stage epochs run, timed_out, epoch losses)."""
+    import time
+
+    from cvsd_tpu_torch.train.loop import Trainer
+
+    rank = dist.get_rank()
+    cfg = _config(os.path.join(root, f"deadline_rank{rank}"))
+    cfg["training"].update(stage1_epochs=3, stage2_epochs=3)
+    tr = Trainer(cfg, mesh_config=MeshConfig(build_mesh((2,), ("data",))), verbose=False,
+                 device="cpu").setup()
+    tr._fit_deadline = 0.0 if rank == 1 else time.perf_counter() + 3600.0
+    art = tr.fit()
+    hist = art["history"]
+    return ([len(hist[s]) for s in ("stage1", "stage2")], art["timed_out"],
+            [r["loss"] for s in ("stage1", "stage2") for r in hist[s]])
+
+
+def test_meshed_deadline_is_decided_by_all_ranks(tmp_path):
+    """training.max_seconds under a mesh: one rank past the deadline stops
+    every rank after the same epoch of each stage, so no rank runs steps
+    (and their gradient sums) that another has left; the ranks' histories
+    are the same."""
+    store = tmp_path / "store"
+    store.mkdir()
+    r0, r1 = spawn_world(_deadline_world, 2, (str(tmp_path),), store_dir=str(store),
+                         timeout=180, threads=2)
+    assert r0 == r1
+    assert r0[0] == [1, 1] and r0[1] is True
+    assert all(np.isfinite(r0[2]))
