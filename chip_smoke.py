@@ -144,9 +144,16 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      == unmeshed bit for bit; ``python -m cvsd_tpu_torch.parallel.dryrun
      4`` on the CPU; the compile cache cold (nvcc) and warm (no nvcc) in
      two subprocesses
+  17. the native host runtime (drive_native): which host libraries built
+     (g++; the decoder only with opencv4, else native_decode: true must
+     raise naming it), phase 8's preprocess native == Python CSV bytes, the
+     production stream's events under native and Python decode with both
+     frames/s and read times, one detect batch under the four nms_methods
+     (equal outputs), the default Shopformer in bfloat16 and float32
+     (windows/s, score gap)
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line,
      with each kernel's launches in every counted run, ``launches_parallel``
-     included), then the result line
+     and ``launches_native`` included), then the result line
 
 The port runs float32 as float32: building a float32 entry point turns
 TF32 off (``utils/device.py::use_float32_math``), so the serve subprocess
@@ -158,8 +165,8 @@ small detector moves the keypoints little either way).
 
 Kernel launch counts are set to 0 just before each detect, stream, serve,
 preprocess, detector-eval, int8 detect, phase-13 run (the imported
-detector, cli.stream, the artifact in its own process), production run and
-phase-16 meshed run drives a pipeline and read just after (the serve subprocess's launches are
+detector, cli.stream, the artifact in its own process), production run,
+phase-16 meshed run and phase-17 run drives a pipeline and read just after (the serve subprocess's launches are
 its own; phase 7(c) counts the in-process server's; each example of phase
 15 counts its own, in its child process); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
@@ -3661,6 +3668,271 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the native host runtime
+
+NAT_VIDEOS = 4  # rendered 320x240 videos of NAT_FRAMES frames for the preprocess comparison
+NAT_FRAMES = 64
+NAT_DET_BATCH = 32  # frames of phase 3's batch detected under each nms_method
+NAT_SF_WINDOWS = 8192  # windows scored by the default Shopformer in float32 and bfloat16
+NAT_SF_BATCH = 1024
+NMS_METHODS = ("pallas_fixpoint", "fixpoint", "pallas_seq", "xla")
+
+
+def drive_native(tmp: str, dev, nms_mod, host_frames: list, card: str) -> tuple:
+    """17. the native host runtime (cvsd_tpu_torch/native/, csrc/host/): (a)
+    which parts build here with the host compiler (the CSV writer and the
+    ring buffer must: nvcc needs that compiler; the decoder only where
+    OpenCV's C++ development files answer ``pkg-config opencv4``, else
+    ``native_decode: true`` must raise naming opencv4); (b) phase 8's
+    preprocess (the default configuration, NAT_VIDEOS videos x NAT_FRAMES
+    frames, max_streams 4) through the native writer and, where built, the
+    native decoder, its CSV bytes equal to the Python path's; (c) phase 14's
+    production videos streamed with native decode and with Python decode:
+    equal events, source frames/s and stage_seconds.read of each; (d) one
+    slice-1 detect batch under the four nms_methods: equal outputs, each
+    kernel method's one launch; (e) the default Shopformer scoring in
+    bfloat16 and float32: windows/s and the score gap. Returns (numbers,
+    {run: launch counts})."""
+    from cvsd_tpu_torch import native
+    from cvsd_tpu_torch.config import get_default_config
+    from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
+    from cvsd_tpu_torch.models.shopformer import build_shopformer
+    from cvsd_tpu_torch.native import video as native_video
+    from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline, preprocess_ucf_crime
+    from cvsd_tpu_torch.utils import host_build
+
+    out, counts = {"card": card}, {}
+    # (a) the builds
+    t0 = time.perf_counter()
+    try:
+        native.load(required=True)
+    except RuntimeError as e:
+        fail(f"the CSV writer and ring buffer did not build with the host compiler: {e}")
+    built = {"compiler": host_build.compiler(), "native": host_build.build_native().name}
+    has_decoder = native_video.load_video_lib() is not None
+    if has_decoder:
+        built["video"] = host_build.build_video().name
+    else:
+        reason = native_video._vstate["failure"]
+        log(f"[native] the video decoder is not built here: {reason}")
+        try:
+            native_video.use_native_decode(True)
+        except RuntimeError as e:
+            if "opencv4" not in str(e):
+                fail(f"native_decode: true raised without naming opencv4: {e}")
+            log(f"[native] native_decode: true raised {e!r}")
+            built["decoder_raised"] = str(e)
+        else:
+            fail("native_decode: true did not raise without the native decoder")
+    built["seconds"] = time.perf_counter() - t0
+    rb = native.NativeRingBuffer(slots=3, shape=(4, 4), dtype=np.uint8)
+    got = []
+
+    def produce() -> None:
+        for i in range(9):
+            slot = rb.acquire_write()
+            rb.slot(slot).fill(i)
+            rb.commit_write(slot)
+        rb.close()
+
+    producer = threading.Thread(target=produce)
+    producer.start()
+    while (slot := rb.acquire_read()) >= 0:
+        got.append(int(rb.slot(slot)[0, 0]))
+        rb.release_read(slot)
+    producer.join()
+    rb.destroy()
+    if got != list(range(9)):
+        fail(f"the native ring buffer passed {got}, expected 0..8 in order")
+    out["built"] = built
+    log(f"[native] built with {built['compiler']} in {built['seconds']:.1f} s: CSV writer and "
+        f"ring buffer {built['native']}, video decoder "
+        f"{built.get('video', 'not built (no opencv4)')}; ring buffer passed 9 slots in order")
+
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    if not has_cv2:
+        log("[native] no cv2 here: the preprocess and streaming comparisons need video files")
+    else:
+        # (b) Pipeline A: the native host path against the Python one
+        cats = ("Shoplifting", "Shopping")
+        videos = [(cats[i % 2], f"{cats[i % 2]}{i:03d}_x264.mp4", NAT_FRAMES, 170 + i)
+                  for i in range(NAT_VIDEOS)]
+        root = ucf_layout(os.path.join(tmp, "ucf"), videos,
+                          [f"{c}/{n}" for c, n, _f, _s in videos], True)
+        cfg = get_default_config()
+        pipe = DetectionPipeline(cfg, device=dev, seed=30)
+        pipe.detect_frames(np.zeros((pipe.batch_size, 240, 320, 3), np.uint8))  # warm-up
+        runs, csv = {}, {}
+        available = native.available
+        for tag, flag in (("native", None), ("python", False)):
+            cfg["detector"]["native_decode"] = flag
+            if tag == "python":  # the csv module's writer: the native one reports unavailable
+                native.available = lambda: False
+            try:
+                reset_launches(nms_mod)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                stats = preprocess_ucf_crime(cfg, root, output_dir=os.path.join(tmp, tag),
+                                             pipeline=pipe, verbose=False, max_streams=4)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            finally:
+                native.available = available
+            counts[f"preprocess_{tag}"] = launches(nms_mod)
+            csv[tag] = read_dir(os.path.join(tmp, tag))
+            runs[tag] = {"host_path": stats["host_path"], "frames": stats["frames"],
+                         "rows": stats["rows"], "seconds": wall,
+                         "frames_per_s": stats["frames"] / wall,
+                         "read_s": stats["stage_seconds"]["read"],
+                         "nms_launches": counts[f"preprocess_{tag}"]}
+            if stats["frames"] != NAT_VIDEOS * NAT_FRAMES or not stats["rows"] or \
+                    not counts[f"preprocess_{tag}"]["nms_fixpoint"]:
+                fail(f"native preprocess ({tag}): {stats['frames']} frames, {stats['rows']} rows,"
+                     f" nms launches {counts[f'preprocess_{tag}']}")
+        want_path = {"decode": "native" if has_decoder else "python", "csv_writer": "native"}
+        if runs["native"]["host_path"] != want_path or \
+                runs["python"]["host_path"] != {"decode": "python", "csv_writer": "python"}:
+            fail(f"preprocess host paths {runs['native']['host_path']} / "
+                 f"{runs['python']['host_path']}, expected {want_path} and Python")
+        if csv["native"] != csv["python"] or len(csv["native"]) != 2:
+            fail("preprocess CSVs differ between the native and the Python host paths")
+        out["preprocess"] = dict(runs, csv_bytes={n: len(b) for n, b in csv["native"].items()})
+        d = cfg["detector"]
+        log(f"[native] preprocess {d['img_size']} {d['dtype']} max_streams 4, "
+            f"{NAT_VIDEOS} x {NAT_FRAMES} frames: "
+            f"CSV bytes equal ({', '.join(f'{n} {len(b)} B' for n, b in csv['native'].items())})"
+            f"; native {runs['native']['host_path']} {runs['native']['frames_per_s']:.1f} "
+            f"frames/s (read {runs['native']['read_s']:.3f} s), Python "
+            f"{runs['python']['frames_per_s']:.1f} frames/s (read {runs['python']['read_s']:.3f}"
+            f" s) [{card}]")
+        del pipe
+        torch.cuda.empty_cache()
+
+        # (c) the production stream, native decode against Python decode
+        from cvsd_tpu_torch.config import load_config
+        from cvsd_tpu_torch.data.video import write_test_video
+        from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline
+
+        pcfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        PROD_CONFIG))
+        scorer = ShopformerScorer(build_shopformer(pcfg, device=dev, seed=40), pcfg, device=dev)
+        spipe = StreamingPipeline(pcfg, scorer, device=dev, seed=41)
+        pvideos = [write_test_video(os.path.join(tmp, f"prod{i}.mp4"), num_frames=PROD_FRAMES,
+                                    seed=150 + i) for i in range(PROD_VIDEOS)]
+        streams, events = {}, {}
+        for tag in (("native", "python") if has_decoder else ("python",)):
+            spipe.native_decode = tag == "native"
+            spipe.stream_videos_concurrent(pvideos[:1], max_streams=PROD_VIDEOS)  # warm-up
+            reset_launches(nms_mod)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = spipe.stream_videos_concurrent(pvideos, max_streams=PROD_VIDEOS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts[f"production_{tag}"] = launches(nms_mod)
+            src = PROD_VIDEOS * PROD_FRAMES
+            streams[tag] = {"host_path": r["host_path"], "events": len(r["events"]),
+                            "frames_read": r["frames"], "seconds": wall,
+                            "source_frames_per_s": src / wall,
+                            "read_s": r["stage_seconds"]["read"],
+                            "stage_seconds": r["stage_seconds"],
+                            "nms_launches": counts[f"production_{tag}"]}
+            events[tag] = {(e.video, e.track_id, e.frame_end): e for e in r["events"]}
+            if not events[tag] or not counts[f"production_{tag}"]["nms_fixpoint"] or \
+                    r["host_path"]["decode"] != tag:
+                fail(f"production stream ({tag}): {len(events[tag])} events, host path "
+                     f"{r['host_path']}, nms launches {counts[f'production_{tag}']}")
+            log(f"[native] production stream, {tag} decode: {src / wall:.1f} source frames/s, "
+                f"read {r['stage_seconds']['read']:.3f} s, stages "
+                f"{json.dumps({k: round(v, 4) for k, v in r['stage_seconds'].items()})}, "
+                f"{len(r['events'])} events [{card}]")
+        if has_decoder:
+            nat, py = events["native"], events["python"]
+            if sorted(nat) != sorted(py) or any(nat[k].frames != py[k].frames for k in nat):
+                fail("production events differ between native and Python decode (keys/frames)")
+            gap = max(abs(nat[k].score - py[k].score) / max(abs(py[k].score), 1e-12)
+                      for k in nat)
+            same = sum(nat[k].score == py[k].score for k in nat)
+            stamps = sum(nat[k].timestamp_ms == py[k].timestamp_ms for k in nat)
+            streams["events_equal"] = {"events": len(nat), "scores_bit_equal": same,
+                                       "max_rel_score_gap": gap, "stamps_equal": stamps}
+            log(f"[native] production events native == Python decode: {len(nat)} keys and "
+                f"frames equal, {same} scores bit-equal (max rel gap {gap:.2e}), {stamps} "
+                f"stamps equal (the decoder's stamps are the system OpenCV's)")
+            if gap > 1e-5:
+                fail(f"production event scores differ native vs Python decode by {gap:.2e}")
+        out["production"] = streams
+        del spipe, scorer
+        torch.cuda.empty_cache()
+
+    # (d) one slice-1 detect batch under the four NMS methods
+    cfg = get_default_config()
+    cfg["detector"]["pose_head"] = True
+    frames = host_frames[0][:NAT_DET_BATCH]
+    nms_outs, nms_ms = {}, {}
+    for method in NMS_METHODS:
+        cfg["detector"]["nms_method"] = method
+        p = DetectionPipeline(cfg, device=dev, seed=0)
+        p.detect_frames(frames)  # warm-up
+        reset_launches(nms_mod)
+        nms_outs[method] = p.detect_frames(frames)
+        counts[f"nms_method_{method}"] = launches(nms_mod)
+        nms_ms[method] = cuda_ms(lambda: p.detect_frames_async(frames), iters=5, warmup=1)
+        del p
+    want = {"pallas_fixpoint": {"nms_fixpoint": 1, "nms_seq": 0, "nms_seq_multi": 0},
+            "pallas_seq": {"nms_fixpoint": 0, "nms_seq": 1, "nms_seq_multi": 0},
+            "fixpoint": {"nms_fixpoint": 0, "nms_seq": 0, "nms_seq_multi": 0},
+            "xla": {"nms_fixpoint": 0, "nms_seq": 0, "nms_seq_multi": 0}}
+    for method in NMS_METHODS:
+        if counts[f"nms_method_{method}"] != want[method]:
+            fail(f"nms_method {method} launched {counts[f'nms_method_{method}']}")
+        if not all(np.array_equal(a, b) for a, b in zip(nms_outs[method],
+                                                        nms_outs["pallas_fixpoint"])):
+            fail(f"nms_method {method}'s detections differ from pallas_fixpoint's")
+    valid = int(nms_outs["pallas_fixpoint"][3].sum())
+    out["nms_methods"] = {"batch": NAT_DET_BATCH, "valid_detections": valid,
+                          "ms_per_batch": nms_ms}
+    log(f"[native] detect B={NAT_DET_BATCH} {cfg['detector']['img_size']} "
+        f"{cfg['detector']['dtype']} under {', '.join(NMS_METHODS)}: "
+        f"outputs equal ({valid} detections kept), ms/batch "
+        + ", ".join(f"{m} {v:.2f}" for m, v in nms_ms.items()) + f" [{card}]")
+
+    # (e) the default Shopformer in bfloat16 and float32
+    windows = np.random.default_rng(171).normal(size=(NAT_SF_WINDOWS, 12, 18, 2)).astype(
+        np.float32)
+    scfg = get_default_config()
+    m32 = build_shopformer(scfg, device=dev, seed=172)
+    sf = {}
+    for dtype in ("float32", "bfloat16"):
+        c = {**scfg, "model": {**scfg["model"], "dtype": dtype}}
+        model = m32 if dtype == "float32" else build_shopformer(
+            c, device=dev, state_dict=m32.state_dict())
+        scorer = ShopformerScorer(model, c, device=dev)
+        scorer.score(windows[:NAT_SF_BATCH], batch_size=NAT_SF_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s = scorer.score(windows, batch_size=NAT_SF_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if s.shape != (NAT_SF_WINDOWS,) or not np.isfinite(s).all():
+            fail(f"the {dtype} Shopformer's scores are not finite or have the wrong shape")
+        sf[dtype] = {"scores": s, "windows_per_s": NAT_SF_WINDOWS / wall, "seconds": wall}
+    rel = np.abs(sf["bfloat16"]["scores"] - sf["float32"]["scores"]) / np.abs(
+        sf["float32"]["scores"])
+    out["shopformer_bf16"] = {
+        "windows": NAT_SF_WINDOWS, "batch": NAT_SF_BATCH,
+        "windows_per_s": {k: v["windows_per_s"] for k, v in sf.items()},
+        "rel_gap_mean": float(rel.mean()), "rel_gap_max": float(rel.max())}
+    log(f"[native] default Shopformer, {NAT_SF_WINDOWS} windows at batch {NAT_SF_BATCH}: "
+        f"float32 {sf['float32']['windows_per_s']:.0f} windows/s, bfloat16 "
+        f"{sf['bfloat16']['windows_per_s']:.0f} windows/s; bf16 vs f32 score gap mean "
+        f"{rel.mean():.3e}, max {rel.max():.3e} [{card}]")
+    if rel.mean() > 2e-2:
+        fail(f"the bfloat16 Shopformer's scores are {rel.mean():.2e} from float32's on average")
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on a GPU")
@@ -4394,6 +4666,16 @@ def main() -> None:
     par["seconds"] = time.perf_counter() - t16
     log(f"[parallel] phase 16 in {par['seconds']:.1f} s")
 
+    # -- 17. the native host runtime -----------------------------------------------------
+    t17 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_native_")
+    try:
+        nat, nat_counts = drive_native(tmp, dev, nms_mod, host_frames, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nat["seconds"] = time.perf_counter() - t17
+    log(f"[native] phase 17 in {nat['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
@@ -4401,7 +4683,7 @@ def main() -> None:
                       "tabular": tabular, "pipeline_a_clis": clis, "train": train,
                       "detector_train": det_train, "int8": int8, "import_export": imp,
                       "production": prod, "examples": examples, "parallel": par,
-                      "seconds": time.perf_counter() - t_start}),
+                      "native": nat, "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
     # main path, detect to score); the grouped kernel is on no path
@@ -4432,6 +4714,7 @@ def main() -> None:
         k["launches_production"] = {run: c[k["name"]] for run, c in prod_counts.items()}
         k["launches_examples"] = {run: c[k["name"]] for run, c in example_counts.items()}
         k["launches_parallel"] = {run: c[k["name"]] for run, c in par_counts.items()}
+        k["launches_native"] = {run: c[k["name"]] for run, c in nat_counts.items()}
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """Video ingestion: fixed-shape RGB frame batches with a prefetch thread
-(the port's copy of ``cvsd_tpu/data/video.py`` without the native decode and
-ring-buffer paths, which are not ported yet). ``cv2`` is imported only where
-a video file is opened: the machine with the card may not have it.
+(the port's copy of ``cvsd_tpu/data/video.py``), decoded by cv2 or by the
+native multi-stream decoder and staged through a Python queue or the native
+ring buffer (``cvsd_tpu_torch/native/``). ``cv2`` is imported only where a
+video file is opened: the machine with the card may not have it.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -56,14 +57,28 @@ class FrameBatch:
 
 class VideoBatcher:
     """Iterate a video as fixed-shape RGB frame batches; a producer thread
-    decodes ahead into a bounded queue (cv2 releases the GIL while decoding)."""
+    decodes ahead (cv2 and the native decoder release the GIL while they
+    decode).
+
+    The host path follows the reference's rule, each part on its own flag:
+    unset, native exactly when its library builds; ``True`` builds it or
+    raises; ``False`` is the Python path.
+    - ``use_native_decode``: the native multi-stream decoder
+      (``csrc/host/video_decode.cpp``, where opencv4 is installed) fills a
+      whole batch in one call; RGB only (``bgr_to_rgb``).
+    - ``use_native_ring``: batches are staged through the native ring buffer
+      (``csrc/host/ring_buffer.cpp``): the producer decodes straight into a
+      preallocated slot, the consumer copies it out and releases it (bounded
+      memory, no Python-queue churn).
+    The frames and frame numbers are the same on every path (the stamps are
+    the decoder's: see ``native/video.py``)."""
 
     def __init__(self, path: str, batch_size: int = 32, prefetch: int = 2,
                  bgr_to_rgb: bool = True, use_native_ring: Optional[bool] = None,
                  use_native_decode: Optional[bool] = None, frame_stride: int = 1):
-        if use_native_ring or use_native_decode:
-            raise NotImplementedError(
-                "native decode / ring buffer is not ported yet: ROADMAP.md, deferred items")
+        from cvsd_tpu_torch import native
+        from cvsd_tpu_torch.native import video as native_video
+
         self.path = path
         self.batch_size = int(batch_size)
         self.prefetch = int(prefetch)
@@ -72,8 +87,21 @@ class VideoBatcher:
         # frames are cap.grab()'d (codec advances, no convert/copy)
         self.frame_stride = max(1, int(frame_stride))
         self.info = video_info(path)
+        # the decoder converts to RGB: a BGR batcher decodes with cv2
+        self.use_native_decode = bool(bgr_to_rgb) and native_video.use_native_decode(
+            use_native_decode)
+        self.use_native_ring = native.use_native_ring(use_native_ring)
+
+    @property
+    def host_path(self) -> Dict[str, str]:
+        """Which host path each part takes: {'decode', 'ring'} -> 'native' | 'python'."""
+        return {"decode": "native" if self.use_native_decode else "python",
+                "ring": "native" if self.use_native_ring else "python"}
 
     def __iter__(self) -> Iterator[FrameBatch]:
+        if self.use_native_ring:
+            yield from self._iter_native_ring()
+            return
         q: "queue.Queue[Optional[FrameBatch]]" = queue.Queue(maxsize=self.prefetch)
         t = threading.Thread(target=self._producer, args=(q,), daemon=True)
         t.start()
@@ -84,48 +112,168 @@ class VideoBatcher:
             yield batch
         t.join()
 
-    def _producer(self, q: "queue.Queue[Optional[FrameBatch]]") -> None:
+    def _open_native_decoder(self):
+        from cvsd_tpu_torch.native.video import MODE_RAW, MultiStreamDecoder
+
+        return MultiStreamDecoder([self.path], 1, (self.info.height, self.info.width),
+                                  MODE_RAW, frame_stride=self.frame_stride)
+
+    def _fill_cv2(self, cap, frames: np.ndarray, numbers: np.ndarray, stamps: np.ndarray,
+                  frame_no: int) -> Tuple[int, int]:
+        """Read up to len(frames) frames into the buffers -> (k read, the
+        last frame number)."""
         cv2 = _cv2()
-        cap = cv2.VideoCapture(self.path)
         H, W = self.info.height, self.info.width
+        k = 0
+        while k < frames.shape[0]:
+            ok = True
+            if frame_no > 0:  # frame_stride: advance via grab()
+                for _ in range(self.frame_stride - 1):
+                    if not cap.grab():
+                        ok = False
+                        break
+            if ok:
+                ok, frame = cap.read()
+            if not ok:
+                break
+            frame_no = 1 if frame_no == 0 else frame_no + self.frame_stride
+            if frame.shape[:2] != (H, W):  # defensive: some codecs lie
+                frame = cv2.resize(frame, (W, H))
+            frames[k] = frame[..., ::-1] if self.bgr_to_rgb else frame
+            numbers[k] = frame_no
+            stamps[k] = cap.get(cv2.CAP_PROP_POS_MSEC)
+            k += 1
+        return k, frame_no
+
+    def _iter_native_ring(self) -> Iterator[FrameBatch]:
+        from cvsd_tpu_torch import native
+
+        H, W, B = self.info.height, self.info.width, self.batch_size
+        rb = native.NativeRingBuffer(slots=self.prefetch + 1, shape=(B, H, W, 3),
+                                     dtype=np.uint8)
+        meta: Dict[int, Any] = {}  # per slot: (numbers, stamps, mask), None at the end
+        error: List[BaseException] = []
+
+        def commit(slot: int, frames: np.ndarray, numbers, stamps, k: int) -> bool:
+            """Publish one slot; False once the source is done."""
+            if k == 0:
+                meta[slot] = None
+                rb.commit_write(slot)
+                return False
+            mask = np.zeros(B, bool)
+            mask[:k] = True
+            frames[k:] = 0  # deterministic padding (slots are reused)
+            meta[slot] = (numbers, stamps, mask)
+            rb.commit_write(slot)
+            return k == B
+
+        def producer_native() -> None:
+            # construct inside the try: a failure must still close the ring,
+            # or the consumer blocks forever
+            dec = None
+            try:
+                dec = self._open_native_decoder()
+                while True:
+                    slot = rb.acquire_write()
+                    if slot < 0:
+                        return
+                    frames = rb.slot(slot)
+                    numbers, stamps, k = dec.next_batch_into(frames)
+                    if not commit(slot, frames, numbers, stamps, k):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+                error.append(e)
+            finally:
+                if dec is not None:
+                    dec.close()
+                rb.close()
+
+        def producer_cv2() -> None:
+            cap = None
+            try:
+                cap = _cv2().VideoCapture(self.path)
+                if not cap.isOpened():
+                    return
+                frame_no = 0
+                while True:
+                    slot = rb.acquire_write()
+                    if slot < 0:
+                        return
+                    frames = rb.slot(slot)
+                    numbers = np.zeros(B, np.int32)
+                    stamps = np.zeros(B, np.float64)
+                    k, frame_no = self._fill_cv2(cap, frames, numbers, stamps, frame_no)
+                    if not commit(slot, frames, numbers, stamps, k):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+                error.append(e)
+            finally:
+                if cap is not None:
+                    cap.release()
+                rb.close()
+
+        t = threading.Thread(target=producer_native if self.use_native_decode
+                             else producer_cv2, daemon=True)
+        t.start()
+        try:
+            while True:
+                slot = rb.acquire_read()
+                if slot < 0:
+                    break
+                m = meta.pop(slot, None)
+                if m is None:
+                    rb.release_read(slot)
+                    continue
+                numbers, stamps, mask = m
+                batch = FrameBatch(rb.slot(slot).copy(), numbers, mask, stamps)
+                rb.release_read(slot)
+                yield batch
+        finally:
+            rb.close()  # a consumer that stops early unblocks the producer
+            t.join()
+            rb.destroy()
+        if error:
+            raise error[0]
+
+    def _producer(self, q: "queue.Queue[Optional[FrameBatch]]") -> None:
         B = self.batch_size
+        H, W = self.info.height, self.info.width
+        if self.use_native_decode:
+            dec = None
+            try:
+                dec = self._open_native_decoder()
+                while True:
+                    frames = np.zeros((B, H, W, 3), np.uint8)
+                    numbers, stamps, k = dec.next_batch_into(frames)
+                    if k == 0:
+                        break
+                    mask = np.zeros(B, bool)
+                    mask[:k] = True
+                    q.put(FrameBatch(frames, numbers, mask, stamps))
+                    if k < B:
+                        break
+            finally:
+                if dec is not None:
+                    dec.close()
+                q.put(None)
+            return
+        cap = _cv2().VideoCapture(self.path)
         try:
             if not cap.isOpened():
                 return
-            frames = np.zeros((B, H, W, 3), np.uint8)
-            numbers = np.zeros(B, np.int32)
-            stamps = np.zeros(B, np.float64)
-            k = 0
             frame_no = 0
             while True:
-                ok = True
-                if frame_no > 0:  # frame_stride: advance via grab()
-                    for _ in range(self.frame_stride - 1):
-                        if not cap.grab():
-                            ok = False
-                            break
-                if ok:
-                    ok, frame = cap.read()
-                if not ok:
+                frames = np.zeros((B, H, W, 3), np.uint8)
+                numbers = np.zeros(B, np.int32)
+                stamps = np.zeros(B, np.float64)
+                k, frame_no = self._fill_cv2(cap, frames, numbers, stamps, frame_no)
+                if k == 0:
                     break
-                frame_no = 1 if frame_no == 0 else frame_no + self.frame_stride
-                if frame.shape[:2] != (H, W):  # defensive: some codecs lie
-                    frame = cv2.resize(frame, (W, H))
-                frames[k] = frame[..., ::-1] if self.bgr_to_rgb else frame
-                numbers[k] = frame_no
-                stamps[k] = cap.get(cv2.CAP_PROP_POS_MSEC)
-                k += 1
-                if k == B:
-                    mask = np.ones(B, bool)
-                    q.put(FrameBatch(frames.copy(), numbers.copy(), mask, stamps.copy()))
-                    k = 0
-            if k > 0:
                 mask = np.zeros(B, bool)
                 mask[:k] = True
-                frames[k:] = 0  # deterministic padding
-                numbers[k:] = 0
-                stamps[k:] = 0.0
-                q.put(FrameBatch(frames.copy(), numbers.copy(), mask, stamps.copy()))
+                q.put(FrameBatch(frames, numbers, mask, stamps))
+                if k < B:
+                    break
         finally:
             cap.release()
             q.put(None)

@@ -37,7 +37,7 @@ class ShopformerScorer:
 
     def __init__(self, model: Shopformer, config: Dict[str, Any], device: DeviceLike = None):
         self.device = resolve_device(device)
-        use_float32_math()  # the Shopformer scores in float32
+        use_float32_math()  # float32 Shopformers score in float32 (bfloat16 ones in bfloat16)
         self.model = model.to(self.device).eval()
         self.config = Config(config)
 
@@ -59,7 +59,9 @@ class ShopformerScorer:
 
     @staticmethod
     def fetch_scores(device_scores: torch.Tensor) -> np.ndarray:
-        return device_scores.cpu().numpy()
+        """The scores as float32 numpy (a bfloat16 model's are widened
+        exactly: numpy has no bfloat16)."""
+        return device_scores.float().cpu().numpy()
 
 
 def load_model(checkpoint_path: str, config: Optional[Dict[str, Any]] = None,

@@ -20,7 +20,11 @@
 
 Poses are (B, T, V, C) at the public functions; the convolutions run on
 (B, C, T, V). Every BatchNorm is ``models/layers.py::FlaxBatchNorm`` (flax's
-train-mode statistics, eps 1e-5).
+train-mode statistics, eps 1e-5). A bfloat16 ``model.dtype`` computes as
+flax's ``dtype=`` does over float32 parameters under XLA (``models/layers.py``):
+every layer is one of that module's with its ``compute_dtype`` set
+(``set_compute_dtype``), the products with the constant adjacency, pool and
+resize matrices included (``product``).
 
 Two parts are not PyTorch's stock behaviour, and the tests hold both to JAX:
   - flax's ``ConvTranspose`` does not flip its kernel, and its "SAME"
@@ -50,19 +54,22 @@ from cvsd_tpu_torch.models.graph import (
     compute_strides,
     normalized_skeleton_adjacency,
 )
-from cvsd_tpu_torch.models.layers import DropoutRNG, FlaxBatchNorm, dropout
+from cvsd_tpu_torch.models.layers import (Conv2d, ConvTranspose2d, DropoutRNG, FlaxBatchNorm,
+                                          Linear, dropout, product)
 
 
 class GraphConvolution(nn.Module):
     """out = A @ X @ W + b over each (batch, time) slice; x is (B, T, V, C)."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, in_channels: int, out_channels: int, adj: torch.Tensor):
         super().__init__()
         self.register_buffer("adj", adj, persistent=False)
-        self.Dense_0 = nn.Linear(in_channels, out_channels)
+        self.Dense_0 = Linear(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_0(torch.einsum("vw,btwc->btvc", self.adj, x))
+        return self.Dense_0(product("vw,btwc->btvc", self.compute_dtype, self.adj, x))
 
 
 class TemporalConvolution(nn.Module):
@@ -71,7 +78,7 @@ class TemporalConvolution(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1, kernel_size: int = 9):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        self.Conv_0 = nn.Conv2d(in_channels, out_channels, (kernel_size, 1), (stride, 1), (pad, 0))
+        self.Conv_0 = Conv2d(in_channels, out_channels, (kernel_size, 1), (stride, 1), (pad, 0))
         self.BatchNorm_0 = FlaxBatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +96,7 @@ class STGCNBlock(nn.Module):
         self.TemporalConvolution_0 = TemporalConvolution(out_channels, out_channels, stride)
         self.project = not (in_channels == out_channels and stride == 1)
         if self.project:
-            self.Conv_0 = nn.Conv2d(in_channels, out_channels, 1, (stride, 1))
+            self.Conv_0 = Conv2d(in_channels, out_channels, 1, (stride, 1))
             self.BatchNorm_0 = FlaxBatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
@@ -106,6 +113,8 @@ class STGCNBlock(nn.Module):
 class GCAEEncoder(nn.Module):
     """ST-GCN encoder: (B, T, V, C) -> (B, num_tokens, V*latent) tokens
     (``pool_to_tokens=False``: as many tokens as the strides leave)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
                  num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
@@ -143,7 +152,7 @@ class GCAEEncoder(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"STGCNBlock_{i}")(x, rng)
         if self.pool:
-            x = torch.einsum("ot,btvc->bovc", self.pool_matrix, x)
+            x = product("ot,btvc->bovc", self.compute_dtype, self.pool_matrix, x)
         if self.token_order == "cv":  # the reference's embedding order c*V + v
             x = x.transpose(2, 3)
         return x.reshape(B, x.shape[1], V * self.latent_channels)
@@ -175,6 +184,8 @@ def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 class GCAEDecoder(nn.Module):
     """Tokens (B, num_tokens, V*latent) -> poses (B, seq_len, V, in_channels)."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
                  num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2):
         super().__init__()
@@ -183,11 +194,11 @@ class GCAEDecoder(nn.Module):
         self.seq_len = seq_len
         self.n_up = num_upsample_layers(seq_len, num_tokens)
         H = hidden_channels
-        self.Dense_0 = nn.Linear(latent_channels * num_keypoints, num_keypoints * H)
+        self.Dense_0 = Linear(latent_channels * num_keypoints, num_keypoints * H)
         for i in range(self.n_up):
             # flax ConvTranspose(k (4, 1), s (2, 1), "SAME") == this with the
             # kernel flipped along time (the bridge flips it)
-            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(H, H, (4, 1), (2, 1), (1, 0)))
+            self.add_module(f"ConvTranspose_{i}", ConvTranspose2d(H, H, (4, 1), (2, 1), (1, 0)))
             self.add_module(f"BatchNorm_{i}", FlaxBatchNorm(H))
         t_up = num_tokens * 2 ** self.n_up
         self.resize = t_up != seq_len
@@ -195,7 +206,7 @@ class GCAEDecoder(nn.Module):
             self.register_buffer("resize_matrix",
                                  torch.from_numpy(linear_resize_matrix(t_up, seq_len)),
                                  persistent=False)
-        self.Conv_0 = nn.Conv2d(H, in_channels, (9, 1), padding=(4, 0))
+        self.Conv_0 = Conv2d(H, in_channels, (9, 1), padding=(4, 0))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, n = tokens.shape[:2]
@@ -204,7 +215,7 @@ class GCAEDecoder(nn.Module):
         for i in range(self.n_up):
             x = F.relu(getattr(self, f"BatchNorm_{i}")(getattr(self, f"ConvTranspose_{i}")(x)))
         if self.resize:  # jax.image.resize "linear" along time; V stays
-            x = torch.einsum("ot,bhtv->bhov", self.resize_matrix, x)
+            x = product("ot,bhtv->bhov", self.compute_dtype, self.resize_matrix, x)
         return self.Conv_0(x).permute(0, 2, 3, 1)
 
 
@@ -232,6 +243,8 @@ class GCAERefDecoder(nn.Module):
     names: Dense_0, ConvTranspose_i, Conv_i and BatchNorm_i, each type
     counted on its own."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, in_channels: int = 2, hidden_channels: int = 64, latent_channels: int = 8,
                  num_keypoints: int = 18, seq_len: int = 12, num_tokens: int = 2,
                  num_layers: int = 4, token_order: str = "vc",
@@ -242,7 +255,7 @@ class GCAERefDecoder(nn.Module):
         self.seq_len = seq_len
         self.token_order = token_order
         H = hidden_channels
-        self.Dense_0 = nn.Linear(latent_channels * num_keypoints, num_keypoints * H)
+        self.Dense_0 = Linear(latent_channels * num_keypoints, num_keypoints * H)
         channels = [H] * (num_layers - 1) + [in_channels]
         self.layers = []  # (conv name, BatchNorm name or None), in order
         n_ct = n_conv = 0
@@ -250,11 +263,11 @@ class GCAERefDecoder(nn.Module):
         for i, f in enumerate(ref_upsample_factors(num_tokens, seq_len, num_layers)):
             if f > 1:  # flax ConvTranspose(k=f, s=f, "VALID") == this, kernel flipped
                 name = f"ConvTranspose_{n_ct}"
-                self.add_module(name, nn.ConvTranspose2d(H, channels[i], (f, 1), (f, 1)))
+                self.add_module(name, ConvTranspose2d(H, channels[i], (f, 1), (f, 1)))
                 n_ct += 1
             else:
                 name = f"Conv_{n_conv}"
-                self.add_module(name, nn.Conv2d(H, channels[i], 1))
+                self.add_module(name, Conv2d(H, channels[i], 1))
                 n_conv += 1
             bn = None
             if i < num_layers - 1:
@@ -280,7 +293,7 @@ class GCAERefDecoder(nn.Module):
             if bn is not None:
                 x = F.relu(getattr(self, bn)(x))
         if self.resize:  # jax.image.resize "linear" along time; V stays
-            x = torch.einsum("ot,bhtv->bhov", self.resize_matrix, x)
+            x = product("ot,bhtv->bhov", self.compute_dtype, self.resize_matrix, x)
         return x.permute(0, 2, 3, 1)
 
 

@@ -18,6 +18,20 @@ transformer and XceptionTime.
   ``torch.Generator``, never the global RNG. The masks drawn in a forward are
   kept, so a forward recomputed by ``torch.utils.checkpoint`` replays them
   (checkpoint restores only the global RNGs, not an explicit generator).
+- flax's ``dtype`` / ``param_dtype`` split as XLA computes it (the
+  Shopformer's ``model.dtype``): ``Linear``, ``Conv2d``, ``ConvTranspose2d``
+  and ``LayerNorm`` are PyTorch's layers with a ``compute_dtype``. Unset (the
+  default) they are PyTorch's layers as they are. Set
+  (``set_compute_dtype``), activations are tensors of the compute dtype, so
+  each elementwise op rounds to it, as XLA rounds each bfloat16 op of a flax
+  model of ``dtype=bfloat16``; products (``Dense``, ``Conv``, ``product``'s
+  einsums) take their operands and kernels in it and accumulate in float32;
+  ``FlaxBatchNorm`` and ``LayerNorm`` normalize in float32 over float32
+  parameters and round their output. Two places follow XLA's float32
+  propagation, which computes an op in float32 where every consumer widens
+  its result: a convolution's bias is added in float32 (a BatchNorm takes
+  it), and ``softmax`` sums in float32. ``softmax`` and ``gelu`` are
+  flax's, op by op.
 - ``frozen_batch_stats``: a forward recomputed in the backward pass must not
   move the running statistics a second time; the trainer runs the backward
   pass inside it.
@@ -54,13 +68,14 @@ class FlaxBatchNorm(nn.Module):
         self.momentum, self.eps = momentum, eps
         self.update_stats = True  # cleared by frozen_batch_stats
         self.data_group = None  # set_data_group: statistics over the mesh's data axis
+        self.compute_dtype: Optional[torch.dtype] = None  # set_compute_dtype: the output's
         self.weight = nn.Parameter(torch.ones(*shape))
         self.bias = nn.Parameter(torch.zeros(*shape))
         self.register_buffer("running_mean", torch.zeros(*shape))
         self.register_buffer("running_var", torch.ones(*shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if (not self.training and self.feature_dims == (1,)
+        if (not self.training and self.feature_dims == (1,) and self.compute_dtype is None
                 and x.dtype == self.running_mean.dtype):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
@@ -81,7 +96,106 @@ class FlaxBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x32 - mean.view(view)) * mul.view(view) + self.bias.view(view)).to(x.dtype)
+        out = (x32 - mean.view(view)) * mul.view(view) + self.bias.view(view)
+        return out.to(self.compute_dtype or x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear``; with ``compute_dtype``, flax's ``Dense(dtype=...)``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d``; with ``compute_dtype``, flax's ``Conv(dtype=...)``, the
+    bias added in float32 and a float32 output (XLA's float32 propagation:
+    the model's convolutions feed BatchNorms, or leave it widened)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None).float()
+        return y if self.bias is None else y + self.bias.to(dt).float().view(1, -1, 1, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d``; with ``compute_dtype``, flax's
+    ``ConvTranspose(dtype=...)`` as ``Conv2d`` computes it (the kernel flip
+    is the weight bridge's)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation).float()
+        return y if self.bias is None else y + self.bias.to(dt).float().view(1, -1, 1, 1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm``; with ``compute_dtype``, flax's ``LayerNorm(dtype=...)``:
+    flax's statistics (variance E[x^2] - E[x]^2) and normalization in
+    float32 over float32 parameters, the output rounded to the compute
+    dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(dt)
+
+
+def product(equation: str, dtype: Optional[torch.dtype], *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``; with a compute ``dtype``, over operands cast to it."""
+    if dtype is None:
+        return torch.einsum(equation, *operands)
+    return torch.einsum(equation, *(o.to(dtype) for o in operands))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` op by op: in x's dtype, each op rounded to it, the
+    sum in float32 (for float32 x: ``torch.softmax``)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.float().sum(dim=dim, keepdim=True).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU; below float32, flax's ``0.5 * x * erfc(-x * sqrt(1/2))``
+    op by op in x's dtype (sqrt(1/2) rounded to it)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=x.dtype, device=x.device)
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Every submodule of ``module`` that has a ``compute_dtype`` computes in
+    ``dtype`` (None: as PyTorch computes, in its input's dtype); the
+    parameters keep their own."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return module
 
 
 @contextlib.contextmanager

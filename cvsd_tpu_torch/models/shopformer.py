@@ -16,6 +16,11 @@ reference's own architectures, whose torch checkpoints
 ``utils/shopformer_import.py`` reads; the defaults are the JAX package's
 design.
 
+``model.dtype`` (float32 by default; bfloat16 where set) is flax's compute
+dtype over float32 parameters: the GCAE, both decoders and the transformer
+compute in it (``models/layers.py::set_compute_dtype``), and the scores come
+out in it, as the reference's do.
+
 Weights come from a flax Shopformer through
 ``utils/weights.py::load_flax_variables`` or from a seeded
 ``torch.Generator``. ``train`` arguments set the mode of the part they
@@ -31,9 +36,9 @@ import torch
 from torch import nn
 
 from cvsd_tpu_torch.models.gcae import GCAE
-from cvsd_tpu_torch.models.layers import DropoutRNG, set_mode
+from cvsd_tpu_torch.models.layers import DropoutRNG, set_compute_dtype, set_mode
 from cvsd_tpu_torch.models.transformer import ShopformerTransformer, sinusoidal_positional_encoding
-from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device
+from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device, torch_dtype
 
 
 class Shopformer(nn.Module):
@@ -47,8 +52,10 @@ class Shopformer(nn.Module):
                  score_max_len: int = 100, gcae_strides: Optional[tuple] = None,
                  transformer_final_norm: bool = False, ln_eps: float = 1e-6,
                  d_model_override: Optional[int] = None, token_order: str = "vc",
-                 pool_to_tokens: bool = True, gcae_decoder_variant: str = "tpu"):
+                 pool_to_tokens: bool = True, gcae_decoder_variant: str = "tpu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.variant = variant
         self.seq_len = seq_len
         self.num_keypoints = num_keypoints
@@ -70,6 +77,8 @@ class Shopformer(nn.Module):
         self.register_buffer(
             "score_pe", torch.from_numpy(sinusoidal_positional_encoding(score_max_len, self.d_model)),
             persistent=False)
+        if dtype != torch.float32:
+            set_compute_dtype(self, dtype)
 
     # -- components -------------------------------------------------------------
 
@@ -93,13 +102,20 @@ class Shopformer(nn.Module):
     # -- scoring ----------------------------------------------------------------
 
     def score_target(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens + PE under v1, plain tokens under v2."""
+        """tokens + PE under v1 (the table in ``model.dtype``), plain tokens
+        under v2."""
         if self.variant == "v1":
-            return tokens + self.score_pe[None, : tokens.shape[1], :].to(tokens.dtype)
+            return tokens + self.score_pe[None, : tokens.shape[1], :].to(self.dtype).to(tokens.dtype)
         return tokens
 
     def compute_normality_score(self, tokens: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
-        return ((recon - self.score_target(tokens)) ** 2).mean(dim=(1, 2))
+        """Per-sample mean squared error, in ``model.dtype`` as the
+        reference's scores come out; below float32 it is computed in float32
+        (the reference's mean widens it, and XLA widens what feeds it)."""
+        if self.dtype == torch.float32:
+            return ((recon - self.score_target(tokens)) ** 2).mean(dim=(1, 2))
+        err = recon.float() - self.score_target(tokens.float())
+        return (err * err).mean(dim=(1, 2)).to(self.dtype)
 
     @torch.no_grad()
     def compute_anomaly_score(self, poses: torch.Tensor) -> torch.Tensor:
@@ -163,8 +179,6 @@ class Shopformer(nn.Module):
     @classmethod
     def from_config(cls, config: Dict[str, Any]) -> "Shopformer":
         m = config["model"]
-        if str(m.get("dtype", "float32")) != "float32":
-            raise NotImplementedError("the port runs the Shopformer in float32 only")
         return cls(
             in_channels=int(m.get("in_channels", 2)),
             hidden_channels=int(m.get("hidden_channels", 64)),
@@ -187,6 +201,7 @@ class Shopformer(nn.Module):
             token_order=m.get("token_order", "vc"),
             pool_to_tokens=bool(m.get("pool_to_tokens", True)),
             gcae_decoder_variant=m.get("gcae_decoder_variant", "tpu"),
+            dtype=torch_dtype(m.get("dtype", "float32")),
         )
 
 

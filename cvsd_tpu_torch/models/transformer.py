@@ -9,7 +9,10 @@
 Attention is written out as flax computes it (query scaled by
 1/sqrt(head_dim), softmax over keys, per-head projections), so flax weights
 carry across through ``utils/weights.py``. LayerNorm eps is ``ln_eps``
-(1e-6 by default, not torch's 1e-5).
+(1e-6 by default, not torch's 1e-5). The layers are ``models/layers.py``'s,
+so a bfloat16 ``model.dtype`` computes as flax's ``dtype=`` does under XLA
+(the attention's products, its scale and the positional table in the
+compute dtype too).
 
 In train mode, dropout (``models/layers.py::dropout``, from the explicit
 ``DropoutRNG`` the caller passes) sits where flax has ``nn.Dropout``: after
@@ -29,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvsd_tpu_torch.models.layers import DropoutRNG, dropout
+from cvsd_tpu_torch.models.layers import (DropoutRNG, LayerNorm, Linear, dropout, gelu, product,
+                                          softmax)
 
 
 def sinusoidal_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -49,6 +53,7 @@ class MultiHeadDotProductAttention(nn.Module):
     heads."""
 
     flax_kernel_init = "lecun_normal"  # flax's default for these projections (init_module)
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -57,27 +62,32 @@ class MultiHeadDotProductAttention(nn.Module):
         self.dropout = dropout
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Linear(d_model, d_model)
+        self.key = Linear(d_model, d_model)
+        self.value = Linear(d_model, d_model)
+        self.out = Linear(d_model, d_model)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         B, Lq, _ = q_in.shape
         Lk = kv_in.shape[1]
         h, hd = self.num_heads, self.head_dim
-        q = self.query(q_in).reshape(B, Lq, h, hd) / math.sqrt(hd)
+        dt = self.compute_dtype
+        q = self.query(q_in).reshape(B, Lq, h, hd)
+        if dt is None:
+            q = q / math.sqrt(hd)
+        else:  # flax divides by sqrt(depth) rounded to the compute dtype
+            q = q / torch.tensor(math.sqrt(hd), dtype=dt, device=q.device)
         k = self.key(kv_in).reshape(B, Lk, h, hd)
         v = self.value(kv_in).reshape(B, Lk, h, hd)
-        weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        weights = softmax(product("bqhd,bkhd->bhqk", dt, q, k), dim=-1)
         if self.training and self.dropout > 0.0:
             if rng is None:
                 raise ValueError("train-mode dropout needs a DropoutRNG (an explicit generator)")
             keep = 1.0 - self.dropout
             mask = rng.keep_mask((1, 1, Lq, Lk), keep, weights.device, batched=False)
             weights = weights * (mask.to(weights.dtype) / keep)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        out = product("bhqk,bkhd->bqhd", dt, weights, v)
         return self.out(out.reshape(B, Lq, h * hd))
 
 
@@ -85,17 +95,30 @@ class _FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ff: int, activation: str, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.Dense_0 = nn.Linear(d_model, d_ff)
-        self.Dense_1 = nn.Linear(d_ff, d_model)
+        self.Dense_0 = Linear(d_model, d_ff)
+        self.Dense_1 = Linear(d_ff, d_model)
         # exact (erf) GELU for v2, as the reference's stock layers compute it
-        self.act = F.relu if activation == "relu" else F.gelu
+        self.act = F.relu if activation == "relu" else gelu
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         x = dropout(self.act(self.Dense_0(x)), self.dropout, self.training, rng)
         return dropout(self.Dense_1(x), self.dropout, self.training, rng)
 
 
-class TransformerEncoderLayer(nn.Module):
+class _Residual(nn.Module):
+    """The residual stream. Below float32 (a ``compute_dtype``) it is kept in
+    float32 as XLA computes it: a sum that a LayerNorm or the score reads is
+    widened there unrounded (XLA folds the widening into the add), while the
+    next residual add reads it rounded to the compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def residual(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return x if dt is None else x.to(dt).float()
+
+
+class TransformerEncoderLayer(_Residual):
     """Post-LN (v1) or pre-LN (v2) encoder layer."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, norm_first: bool,
@@ -106,8 +129,8 @@ class TransformerEncoderLayer(nn.Module):
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(d_model, num_heads,
                                                                            dropout)
         self._FeedForward_0 = _FeedForward(d_model, d_ff, activation, dropout)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=ln_eps)
-        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=ln_eps)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=ln_eps)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=ln_eps)
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         attn, ffn = self.MultiHeadDotProductAttention_0, self._FeedForward_0
@@ -115,15 +138,16 @@ class TransformerEncoderLayer(nn.Module):
         def drop(y):
             return dropout(y, self.dropout, self.training, rng)
 
+        r = self.residual
         if self.norm_first:
             h = self.LayerNorm_0(x)
-            x = x + drop(attn(h, h, rng))
-            return x + ffn(self.LayerNorm_1(x), rng)
-        x = self.LayerNorm_0(x + drop(attn(x, x, rng)))
-        return self.LayerNorm_1(x + ffn(x, rng))
+            x = r(x) + drop(attn(h, h, rng))
+            return r(x) + ffn(self.LayerNorm_1(x), rng)
+        x = self.LayerNorm_0(r(x) + drop(attn(x, x, rng)))
+        return self.LayerNorm_1(r(x) + ffn(x, rng))
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(_Residual):
     """Self-attn, cross-attn, FFN — post-LN (v1) or pre-LN (v2)."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, norm_first: bool,
@@ -137,7 +161,7 @@ class TransformerDecoderLayer(nn.Module):
                                                                            dropout)
         self._FeedForward_0 = _FeedForward(d_model, d_ff, activation, dropout)
         for i in range(3):
-            self.add_module(f"LayerNorm_{i}", nn.LayerNorm(d_model, eps=ln_eps))
+            self.add_module(f"LayerNorm_{i}", LayerNorm(d_model, eps=ln_eps))
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
@@ -148,19 +172,22 @@ class TransformerDecoderLayer(nn.Module):
         def drop(y):
             return dropout(y, self.dropout, self.training, rng)
 
+        r = self.residual
         if self.norm_first:
             h = self.LayerNorm_0(tgt)
-            tgt = tgt + drop(self_attn(h, h, rng))
-            tgt = tgt + drop(cross_attn(self.LayerNorm_1(tgt), memory, rng))
-            return tgt + ffn(self.LayerNorm_2(tgt), rng)
-        tgt = self.LayerNorm_0(tgt + drop(self_attn(tgt, tgt, rng)))
-        tgt = self.LayerNorm_1(tgt + drop(cross_attn(tgt, memory, rng)))
-        return self.LayerNorm_2(tgt + ffn(tgt, rng))
+            tgt = r(tgt) + drop(self_attn(h, h, rng))
+            tgt = r(tgt) + drop(cross_attn(self.LayerNorm_1(tgt), memory, rng))
+            return r(tgt) + ffn(self.LayerNorm_2(tgt), rng)
+        tgt = self.LayerNorm_0(r(tgt) + drop(self_attn(tgt, tgt, rng)))
+        tgt = self.LayerNorm_1(r(tgt) + drop(cross_attn(tgt, memory, rng)))
+        return self.LayerNorm_2(r(tgt) + ffn(tgt, rng))
 
 
 class ShopformerTransformer(nn.Module):
     """Encoder-decoder token reconstructor (defaults: d_model 144, 2 heads,
     2+2 layers, ff 64)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, d_model: int = 144, num_heads: int = 2, num_encoder_layers: int = 2,
                  num_decoder_layers: int = 2, dim_feedforward: int = 64, max_len: int = 100,
@@ -176,7 +203,7 @@ class ShopformerTransformer(nn.Module):
         self.dropout = dropout
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
-        self.in_proj = nn.Linear(d_in, d_model) if d_in != d_model else None
+        self.in_proj = Linear(d_in, d_model) if d_in != d_model else None
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_positional_encoding(max_len, d_model)),
             persistent=False)
@@ -186,15 +213,19 @@ class ShopformerTransformer(nn.Module):
         for i in range(num_decoder_layers):
             self.add_module(f"dec_layers_{i}", TransformerDecoderLayer(
                 d_model, num_heads, dim_feedforward, norm_first, activation, ln_eps, dropout))
-        self.enc_norm = nn.LayerNorm(d_model, eps=ln_eps) if final_norm else None
-        self.dec_norm = nn.LayerNorm(d_model, eps=ln_eps) if final_norm else None
-        self.out_proj = (nn.Linear(d_model, d_in)
+        self.enc_norm = LayerNorm(d_model, eps=ln_eps) if final_norm else None
+        self.dec_norm = LayerNorm(d_model, eps=ln_eps) if final_norm else None
+        self.out_proj = (Linear(d_model, d_in)
                          if (variant == "v1" or d_in != d_model) else None)
 
     def _embed(self, x: torch.Tensor, rng: Optional[DropoutRNG]) -> torch.Tensor:
         if self.in_proj is not None:
             x = self.in_proj(x)
-        return dropout(x + self.pe[None, : x.shape[1], :], self.dropout, self.training, rng)
+        pe = self.pe[None, : x.shape[1], :]
+        if self.compute_dtype is not None:  # flax's table in the compute dtype, added in
+            pe = pe.to(self.compute_dtype).float()  # float32 (the LayerNorm widens it)
+            x = x.float()
+        return dropout(x + pe, self.dropout, self.training, rng)
 
     def encode(self, tokens: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         x = self._embed(tokens, rng)

@@ -10,7 +10,10 @@
    ``csrc/nms_seq.cu``. Each kernel runs on a CUDA tensor; a CPU tensor goes
    through the kernel's plain PyTorch version. Both are reached through
    PyTorch operators (``torch.ops.cvsd_tpu_torch.nms_fixpoint`` / ``nms_seq``),
-   which ``torch.export`` keeps in an exported program.
+   which ``torch.export`` keeps in an exported program. ``fixpoint`` and
+   ``xla`` are plain XLA in the reference and run the plain versions here
+   on every device (``nms_fixpoint_torch``; ``suppress_torch``, vectorised
+   over the batch). All four give the same mask.
 3. fixed ``max_detections`` output with a validity mask
 """
 
@@ -24,20 +27,15 @@ import torch
 from cvsd_tpu_torch.ops.iou import box_iou_matrix
 
 MAX_KERNEL_K = 1024  # 32 bit words of 32 candidates
-# The reference's other methods ('fixpoint', 'xla') are plain XLA there and
-# would be plain PyTorch here: the port keeps only the kernel methods.
 KERNEL_METHODS = ("pallas_fixpoint", "pallas_seq")
+# the reference's plain-XLA methods run the plain PyTorch versions here
+PLAIN_METHODS = ("fixpoint", "xla")
 
 
 def check_nms_method(method: str) -> None:
-    """Raise unless ``method`` names one of the port's kernel NMS methods."""
-    if method in KERNEL_METHODS:
-        return
-    if method in ("fixpoint", "xla"):
-        raise NotImplementedError(
-            f"detector.nms_method {method!r} is not ported: the port runs 'pallas_fixpoint' "
-            "and 'pallas_seq' (the CUDA kernels); ROADMAP.md, 'TPU kernels to port'")
-    raise ValueError(f"unknown NMS method: {method!r}")
+    """Raise unless ``method`` names one of the four NMS methods."""
+    if method not in KERNEL_METHODS + PLAIN_METHODS:
+        raise ValueError(f"unknown NMS method: {method!r}")
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -319,16 +317,22 @@ def batched_nms(
     fixed-size (boxes, scores, valid, anchor_idx) outputs. The keep mask is
     ``nms_fixpoint``'s (method 'pallas_fixpoint') or ``nms_seq``'s
     ('pallas_seq'): the CUDA kernel on the card, its plain version on the
-    CPU. Both are the same greedy mask.
+    CPU; 'fixpoint' and 'xla' run the plain versions (the reference's plain
+    XLA methods) on every device. All are the same greedy mask.
 
     Returns boxes (B, M, 4), scores (B, M), valid (B, M) bool, anchor_idx
     (B, M) int32 into the A anchors (0 where invalid); M = max_detections."""
     check_nms_method(method)
     top_scores, top_idx, cand_boxes, init_alive = prefilter(boxes, scores, conf_thresh, pre_topk)
     K = top_scores.shape[1]
-    cand = cand_boxes.to(torch.float32).contiguous()
-    op = nms_seq_op if method == "pallas_seq" else nms_fixpoint_op
-    keep = op(cand, init_alive.to(torch.float32), float(iou_thresh))
+    if method == "fixpoint":
+        keep = nms_fixpoint_torch(cand_boxes, init_alive, iou_thresh)
+    elif method == "xla":
+        keep = suppress_torch(box_iou_matrix(cand_boxes, cand_boxes), init_alive, iou_thresh)
+    else:
+        cand = cand_boxes.to(torch.float32).contiguous()
+        op = nms_seq_op if method == "pallas_seq" else nms_fixpoint_op
+        keep = op(cand, init_alive.to(torch.float32), float(iou_thresh))
 
     neg_inf = torch.tensor(float("-inf"), dtype=top_scores.dtype, device=top_scores.device)
     final_scores = torch.where(keep & init_alive, top_scores, neg_inf)

@@ -2,7 +2,7 @@
 ``cvsd_tpu/parallel/distributed.py``).
 
 ``jax.distributed.initialize`` becomes ``init_process_group`` over TCP:
-NCCL where there is a card, gloo on the CPU. A hybrid mesh keeps its inner
+NCCL on the card, gloo where the caller asks for the CPU. A hybrid mesh keeps its inner
 axes inside a node and puts the node (DCN) part of each axis outermost, as
 ``mesh_utils.create_hybrid_device_mesh`` does. ``spawn_world`` runs a
 function in N spawned processes of one gloo group: the CPU counterpart of
@@ -24,25 +24,29 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from cvsd_tpu_torch.parallel.mesh import _default_device_type, local_device
+from cvsd_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def initialize_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    device: DeviceLike = None,
 ) -> bool:
     """Join a process group of ``num_processes`` at ``coordinator_address``
-    (host:port): NCCL when a card is visible, gloo otherwise. No-op
-    (returns False) in single-process settings, safe to call
-    unconditionally."""
+    (host:port). The group follows the device the caller asked for, as
+    ``cli/common.py::maybe_mesh`` does: ``device='cpu'`` joins gloo;
+    anything else (unset: the card) resolves the card first and joins NCCL,
+    raising without one. No-op (returns False) in single-process settings,
+    safe to call unconditionally."""
     if num_processes is None or num_processes <= 1:
         return False
     if coordinator_address is None or process_id is None:
         raise ValueError("a process group of several processes needs the coordinator's "
                          "address and this process's id")
+    backend = "gloo" if resolve_device(device).type == "cpu" else "nccl"
     dist.init_process_group(
-        backend="nccl" if torch.cuda.is_available() else "gloo",
-        init_method=f"tcp://{coordinator_address}",
+        backend=backend, init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id))
     return True
 

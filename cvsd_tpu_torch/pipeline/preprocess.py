@@ -19,8 +19,13 @@ over the full list (skipped lines counted), frame numbers are the 1-based
 post-read frame positions, boxes are normalized xywh. ``process_video``
 runs one video at a time; ``process_videos_multiplexed`` fills shared
 detector batches from up to ``max_streams`` videos of one resolution and
-writes the same bytes. Videos are decoded with cv2 (imported where a video
-is opened); the native decoder is not ported (ROADMAP.md, deferred items).
+writes the same bytes. The host runtime (``cvsd_tpu_torch/native/``) runs
+beside the Python path, as in the reference: videos are decoded by the
+native multi-stream decoder (``detector.native_decode``; unset: where it
+builds, which needs opencv4) or by cv2 (imported where a video is opened),
+and rows are written by the native CSV writer where it builds, else by the
+csv module. Both give the same frames and the same bytes; each driver
+reports which path it took (``host_path``).
 
 With ``mesh_config`` (``parallel/mesh.py``) detection is data-parallel, as
 the reference's over its mesh: the batch size is padded to a multiple of
@@ -235,17 +240,33 @@ class DetectionPipeline:
 # the UCF-Crime preprocess driver (Pipeline A: videos -> BBox CSVs)
 
 
-def _refuse_native_decode(config: Dict[str, Any]) -> None:
-    if (config.get("detector") or {}).get("native_decode"):
-        raise NotImplementedError(
-            "detector.native_decode is not ported yet: ROADMAP.md, deferred items")
+def _write_rows(csv_path: str, rows: List[BBox]) -> str:
+    """Append one video's rows (one clip, name and label) to its CSV: through
+    the native buffered writer when it builds, else the Python csv writer;
+    the bytes are the same. Returns the path taken, 'native' or 'python'."""
+    from cvsd_tpu_torch import native
+
+    if not native.available():
+        append_bboxes(csv_path, rows)
+        return "python"
+    first = rows[0]
+    key = (first.clip, first.name, first.is_anomaly, first.anomaly)
+    if any((r.clip, r.name, r.is_anomaly, r.anomaly) != key for r in rows):
+        raise ValueError("_write_rows writes one video's rows: one clip, name and label")
+    with native.NativeCsvWriter(csv_path) as w:
+        w.write_video_rows(
+            first.clip, first.name, np.asarray([r.frame for r in rows], np.int32),
+            np.asarray([r.person for r in rows], np.float64),
+            np.asarray([[r.left, r.top, r.width, r.height] for r in rows], np.float64),
+            first.is_anomaly, first.anomaly)
+    return "native"
 
 
-def _write_rows(csv_path: str, rows: List[BBox]) -> None:
-    """Append one video's rows to its CSV. The reference writes them with
-    its native buffered writer when built, which gives the bytes of this
-    pure-Python writer; the rows carry their clip, name and label."""
-    append_bboxes(csv_path, rows)
+def _native_decode_flag(config: Dict[str, Any]) -> Optional[bool]:
+    """``detector.native_decode``: None (unset: native where the decoder
+    builds), True or False."""
+    flag = (config.get("detector") or {}).get("native_decode")
+    return None if flag is None else bool(flag)
 
 
 def _tracked_rows(tracker: IoUTracker, boxes: np.ndarray, scores: np.ndarray, frame_no: int,
@@ -280,15 +301,19 @@ def process_video(
     Up to ``stream_depth`` detection batches stay in flight, so the card
     works while the host tracks the previous batch; batches are fetched in
     order, so the rows equal a synchronous loop's. Returns {frames,
-    detections, rows, seconds, fps}."""
+    detections, rows, seconds, fps, host_path}; ``host_path`` says how
+    the frames were decoded and staged and the rows written ('native' or
+    'python' each: ``VideoBatcher``, ``_write_rows``)."""
     if tracker is None:
         tracker = make_tracker(pipeline.config.get("detector"))
     tracker.reset()
     rows: List[BBox] = []
     n_frames = 0
     t0 = time.perf_counter()
-    batcher = VideoBatcher(video_path, batch_size=pipeline.batch_size)
+    batcher = VideoBatcher(video_path, batch_size=pipeline.batch_size,
+                           use_native_decode=_native_decode_flag(pipeline.config))
     src_w, src_h = batcher.info.width, batcher.info.height
+    host_path = dict(batcher.host_path)
     inflight: deque = deque()
 
     def drain_one() -> None:
@@ -311,10 +336,10 @@ def process_video(
     while inflight:
         drain_one()
     if rows and writes(pipeline.mesh_config):
-        _write_rows(csv_path, rows)
+        host_path["csv_writer"] = _write_rows(csv_path, rows)
     dt = time.perf_counter() - t0
     return {"frames": n_frames, "detections": len(rows), "rows": len(rows), "seconds": dt,
-            "fps": n_frames / dt if dt > 0 else 0.0}
+            "fps": n_frames / dt if dt > 0 else 0.0, "host_path": host_path}
 
 
 def process_videos_multiplexed(
@@ -330,11 +355,19 @@ def process_videos_multiplexed(
     equal ``process_video``'s; rows are buffered per item and returned in
     ``items`` order, for one write in entry order.
 
+    Frames are decoded by cv2 or, per ``detector.native_decode`` (unset:
+    where it builds), by the native multi-stream decoder, one call a batch;
+    both give the same frames in the same order, so the same rows.
+
     items: (video_path, clip, label, name, csv_path, is_anomaly) per video.
-    Returns {rows_by_item, frames, detections, seconds, stage_seconds}."""
-    _refuse_native_decode(pipeline.config)
-    cv2 = _cv2()
+    Returns {rows_by_item, frames, detections, seconds, stage_seconds,
+    host_path}; ``host_path['decode']`` is 'native' or 'python'."""
+    from cvsd_tpu_torch.native.video import use_native_decode
+
     t0 = time.perf_counter()
+    native = use_native_decode(_native_decode_flag(pipeline.config))
+    cv2 = None if native else _cv2()
+    host_path = {"decode": "native" if native else "python"}
     B = pipeline.batch_size
     depth = max(1, pipeline.stream_depth)
     host_lb = pipeline.host_letterbox
@@ -376,11 +409,30 @@ def process_videos_multiplexed(
             return True
         return False
 
-    while len(active) < max_streams and open_next():
-        pass
-    if not active:
+    if native:
+        # probe every item (the resolution guard of open_next); a video that
+        # does not open contributes nothing
+        for it in items:
+            try:
+                info = video_info(it[0])
+            except (FileNotFoundError, RuntimeError):
+                continue
+            if src_h is None:
+                src_h, src_w = info.height, info.width
+            elif (info.height, info.width) != (src_h, src_w):
+                raise ValueError(
+                    f"{it[0]}: {info.height}x{info.width} differs from group resolution "
+                    f"{src_h}x{src_w}; group videos by resolution before multiplexing")
+        if src_h is not None and host_lb:
+            size = pipeline._canvas_size(src_h, src_w)
+            lb = (size,) + letterbox_params(src_h, src_w, size)
+    else:
+        while len(active) < max_streams and open_next():
+            pass
+    if src_h is None:
         return {"rows_by_item": rows_by_item, "frames": 0, "detections": 0,
-                "seconds": time.perf_counter() - t0, "stage_seconds": {}}
+                "seconds": time.perf_counter() - t0, "stage_seconds": {},
+                "host_path": host_path}
 
     def read_batch():
         """Fill one detector batch round-robin across the live streams; meta
@@ -422,6 +474,40 @@ def process_videos_multiplexed(
         n_frames += k
         return frames, meta, k
 
+    dec = None
+    if native:
+        from cvsd_tpu_torch.native.video import (MODE_CANVAS, MODE_CONTENT, MODE_RAW,
+                                                 MultiStreamDecoder)
+
+        paths = [it[0] for it in items]
+        if host_lb:
+            size, _scale, px, py, nw, nh = lb
+            dec = (MultiStreamDecoder(paths, max_streams, (nh, nw), MODE_CONTENT, (nh, nw))
+                   if content else
+                   MultiStreamDecoder(paths, max_streams, (size, size), MODE_CANVAS, (nh, nw),
+                                      (px, py)))
+        else:
+            dec = MultiStreamDecoder(paths, max_streams, (src_h, src_w), MODE_RAW)
+        nstates: Dict[int, Dict[str, Any]] = {}
+
+        def read_batch_native():
+            nonlocal n_frames
+            frames, sidx, fno, _stamp, k = dec.next_batch(B)
+            meta: List[Optional[Tuple[Dict[str, Any], int]]] = [None] * B
+            for b in range(k):
+                si = int(sidx[b])
+                st = nstates.get(si)
+                if st is None:
+                    it = items[si]
+                    st = nstates[si] = {
+                        "tracker": make_tracker(pipeline.config.get("detector")),
+                        "rows": rows_by_item[si],
+                        "clip": it[1], "label": it[2], "name": it[3], "anom": it[5],
+                    }
+                meta[b] = (st, int(fno[b]))
+            n_frames += k
+            return frames, meta, k
+
     def process(outs, meta, k: int) -> None:
         nonlocal n_dets
         boxes_src, _xywhn, scores, valid = outs[:4]
@@ -437,7 +523,7 @@ def process_videos_multiplexed(
     # and therefore the rows are deterministic)
     stage = {"read": 0.0, "dispatch": 0.0, "fetch": 0.0, "track": 0.0}
     next_batch = make_next_batch(
-        read_batch, stage, depth,
+        read_batch if dec is None else read_batch_native, stage, depth,
         bool(pipeline.config.get("detector", {}).get("decode_thread", True)))
     inflight: deque = deque()
     eof = False
@@ -471,8 +557,11 @@ def process_videos_multiplexed(
     finally:
         for st in active:
             st["cap"].release()
+    if dec is not None:  # the decode-ahead thread has returned at EOF
+        dec.close()
     return {"rows_by_item": rows_by_item, "frames": n_frames, "detections": n_dets,
-            "seconds": time.perf_counter() - t0, "stage_seconds": stage}
+            "seconds": time.perf_counter() - t0, "stage_seconds": stage,
+            "host_path": host_path}
 
 
 def preprocess_ucf_crime(
@@ -496,10 +585,11 @@ def preprocess_ucf_crime(
     without one. Pass ``pipeline`` to reuse a built one. ``max_streams`` > 1
     multiplexes that many videos into shared detector batches, one pass per
     source resolution, and writes the same bytes. Returns {videos, frames,
-    rows, skipped, seconds, fps[, stage_seconds]}. ``mesh_config``: detection
+    rows, skipped, seconds, fps, host_path[, stage_seconds]}: ``host_path``
+    maps each host part that ran ('decode', 'ring', 'csv_writer') to
+    'native' or 'python' (module docstring). ``mesh_config``: detection
     data-parallel over the mesh (``DetectionPipeline``), the rest the same on
     every rank, only rank 0 writing; the CSV bytes are the single device's."""
-    _refuse_native_decode(config)
     if pipeline is None:  # first, so a missing card is reported before any file
         pipeline = DetectionPipeline(config, state_dict=state_dict, device=device,
                                      mesh_config=mesh_config)
@@ -507,7 +597,8 @@ def preprocess_ucf_crime(
     entries = read_train_list(os.path.join(dataset_dir, train_list), category_filter)
     if limit:
         entries = entries[:limit]
-    stats: Dict[str, Any] = {"videos": 0, "frames": 0, "rows": 0, "skipped": [], "seconds": 0.0}
+    stats: Dict[str, Any] = {"videos": 0, "frames": 0, "rows": 0, "skipped": [], "seconds": 0.0,
+                             "host_path": {}}
 
     present = []
     for entry in entries:
@@ -542,11 +633,13 @@ def preprocess_ucf_crime(
             stats["videos"] += len(group)
             for k, v in r["stage_seconds"].items():
                 stats["stage_seconds"][k] = stats["stage_seconds"].get(k, 0.0) + v
+            stats["host_path"].update(r["host_path"])
         for entry, _video_path in present:
             rows = rows_for_entry.get(entry.index, [])
             stats["rows"] += len(rows)
             if rows and writes(pipeline.mesh_config):
-                _write_rows(route_csv(entry.label, output_dir)[0], rows)
+                stats["host_path"]["csv_writer"] = _write_rows(
+                    route_csv(entry.label, output_dir)[0], rows)
         stats["seconds"] = time.perf_counter() - t0
     else:
         tracker = make_tracker(pipeline.config.get("detector"))
@@ -560,6 +653,7 @@ def preprocess_ucf_crime(
             stats["frames"] += r["frames"]
             stats["rows"] += r["rows"]
             stats["seconds"] += r["seconds"]
+            stats["host_path"].update(r["host_path"])
             if verbose:
                 print(f"  {r['frames']} frames, {r['rows']} rows, {r['fps']:.1f} fps")
     stats["fps"] = stats["frames"] / stats["seconds"] if stats["seconds"] else 0.0

@@ -8,9 +8,12 @@ k)``. ``RoundRobinReader`` builds such a reader over frame sources, filling
 each detector batch round-robin across up to ``max_streams`` live streams;
 ``VideoFileSource`` reads a video file through cv2 and ``ArraySource`` reads
 frames already in memory, so the loop runs without cv2 and gives the same
-events for the same frames. A ``VideoFileSource``'s ``on_frame(frame_no,
+events for the same frames. ``NativeDecodeReader`` is a reader of the same
+protocol over video files through the native multi-stream decoder
+(``detector.native_decode``, see ``StreamingPipeline``). A ``VideoFileSource``'s ``on_frame(frame_no,
 timestamp_ms, dets)`` hook, where given, fires for each of its frames as
-``run_stream`` tracks it (see ``StreamingPipeline.stream_video``).
+``run_stream`` tracks it (see ``StreamingPipeline.stream_video``); the
+native reader takes the same hook per path.
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ import numpy as np
 
 from cvsd_tpu_torch.data.poselift import add_neck_keypoint, normalize_sequence
 from cvsd_tpu_torch.eval.evaluate import ShopformerScorer
+from cvsd_tpu_torch.native.video import use_native_decode
 from cvsd_tpu_torch.ops.letterbox import PAD_VALUE, letterbox_params
 from cvsd_tpu_torch.pipeline._decode_ahead import make_next_batch
-from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
+from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline, _native_decode_flag
 from cvsd_tpu_torch.track import make_tracker
 from cvsd_tpu_torch.utils.device import DeviceLike
 from cvsd_tpu_torch.utils.hostmem import malloc_trim
@@ -254,8 +258,79 @@ class RoundRobinReader:
         return frames, meta, k
 
 
+class NativeDecodeReader:
+    """``read_batch() -> (frames, meta, k)`` over video files of one
+    resolution through the native multi-stream decoder
+    (``native/video.py``): one C++ call fills a detector batch round-robin
+    across up to ``max_streams`` live streams, decoding, resizing and
+    converting (the host-letterbox canvas or content rows, or source-size
+    frames) with the GIL released. The same protocol as
+    ``RoundRobinReader``, the same frames in the same order, so the same
+    events; the stamps are the decoder's (see ``native/video.py``).
+    ``names`` and ``on_frames`` (per path) are the ``VideoFileSource``
+    options."""
+
+    def __init__(self, pipeline: "StreamingPipeline", paths: Sequence[str],
+                 resolution: Tuple[int, int], max_streams: int,
+                 names: Optional[Sequence[Optional[str]]] = None,
+                 on_frames: Optional[Sequence[Optional[Callable]]] = None):
+        from cvsd_tpu_torch.native.video import (MODE_CANVAS, MODE_CONTENT, MODE_RAW,
+                                                 MultiStreamDecoder)
+
+        self.pipeline = pipeline
+        self.paths = [str(p) for p in paths]
+        self.names = [n or p.rsplit("/", 1)[-1]
+                      for n, p in zip(names or [None] * len(self.paths), self.paths)]
+        self.on_frames = list(on_frames or [None] * len(self.paths))
+        self.resolution = resolution
+        det = pipeline.detection
+        self.B = det.batch_size
+        size = det._canvas_size(*resolution)
+        self.scale, px, py, nw, nh = letterbox_params(*resolution, size)
+        self.pad = (px, py)
+        stride = pipeline.frame_stride
+        if det.host_letterbox and det.host_lb_content:
+            self.dec = MultiStreamDecoder(self.paths, max_streams, (nh, nw), MODE_CONTENT,
+                                          (nh, nw), frame_stride=stride)
+        elif det.host_letterbox:
+            self.dec = MultiStreamDecoder(self.paths, max_streams, (size, size), MODE_CANVAS,
+                                          (nh, nw), (px, py), frame_stride=stride)
+        else:
+            self.dec = MultiStreamDecoder(self.paths, max_streams, tuple(resolution),
+                                          MODE_RAW, frame_stride=stride)
+        self.states: Dict[int, Dict[str, Any]] = {}
+        self.n_frames = 0
+        self.n_opened = 0  # streams that gave a frame
+
+    def __call__(self) -> Tuple[np.ndarray, List, int]:
+        frames, sidx, fno, stamp, k = self.dec.next_batch(self.B)
+        meta: List[Optional[Tuple[Dict[str, Any], int, float]]] = [None] * self.B
+        for b in range(k):
+            si = int(sidx[b])
+            st = self.states.get(si)
+            if st is None:
+                self.n_opened += 1
+                st = self.states[si] = {
+                    "tracker": make_tracker(self.pipeline.config.get("detector")),
+                    "windows": {}, "scale": self.scale, "pad": self.pad,
+                    "name": self.names[si], "resolution": self.resolution,
+                    "on_frame": self.on_frames[si],
+                }
+            meta[b] = (st, int(fno[b]), float(stamp[b]))
+        self.n_frames += k
+        if k == 0:  # every stream has ended: nothing reads the decoder again
+            self.dec.close()
+        return frames, meta, k
+
+
 class StreamingPipeline:
-    """decode -> detect(+pose) -> track -> window -> score, batched throughout."""
+    """decode -> detect(+pose) -> track -> window -> score, batched throughout.
+
+    Video files are decoded per ``detector.native_decode``, as in the
+    reference: unset, by the native multi-stream decoder where it builds
+    (``NativeDecodeReader``), else by cv2 (``VideoFileSource`` under
+    ``RoundRobinReader``); ``True`` builds the decoder or raises. Both
+    readers feed the one ``run_stream`` loop."""
 
     def __init__(self, config: Dict[str, Any], scorer: ShopformerScorer,
                  detector_state_dict: Optional[Dict[str, Any]] = None, seed: int = 0,
@@ -267,9 +342,6 @@ class StreamingPipeline:
         cfg["detector"] = dict(cfg.get("detector") or {})
         if cfg["detector"].get("pose_mode", "head") != "topdown":
             cfg["detector"]["pose_head"] = True
-        if cfg["detector"].get("native_decode"):
-            raise NotImplementedError(
-                "detector.native_decode is not ported yet: ROADMAP.md, deferred items")
         self.config = cfg
         self.detection = DetectionPipeline(cfg, state_dict=detector_state_dict, seed=seed,
                                            device=device, pose_model=pose_model,
@@ -288,6 +360,19 @@ class StreamingPipeline:
         self.score_depth = max(1, int(cfg["detector"].get(
             "score_stream_depth", self.stream_depth)))
         self._stage_seconds = {"read": 0.0, "detect": 0.0, "track": 0.0, "score": 0.0}
+        # an explicit true builds the decoder now, so a missing opencv4 raises here
+        self.native_decode = use_native_decode(_native_decode_flag(cfg))
+
+    def _video_reader(self, paths: Sequence[str], resolution: Tuple[int, int],
+                      max_streams: int, name: Optional[str] = None,
+                      on_frame: Optional[Callable] = None):
+        """The frame reader of one resolution group of video files."""
+        if self.native_decode:
+            return NativeDecodeReader(self, paths, resolution, max_streams,
+                                      names=[name] * len(paths), on_frames=[on_frame] * len(paths))
+        return RoundRobinReader(
+            self, [VideoFileSource(p, self.frame_stride, name=name, on_frame=on_frame)
+                   for p in paths], resolution, max_streams)
 
     def _prepare_window(self, window: np.ndarray) -> np.ndarray:
         """(T, 17, 2) detector keypoints -> normalized (T, V, C) model input."""
@@ -315,10 +400,8 @@ class StreamingPipeline:
         from cvsd_tpu_torch.data.video import video_info
 
         info = video_info(video_path)
-        source = VideoFileSource(video_path, self.frame_stride, name=video_name,
-                                 on_frame=on_frame)
-        yield from self.run_stream(
-            RoundRobinReader(self, [source], (info.height, info.width), max_streams=1))
+        yield from self.run_stream(self._video_reader(
+            [video_path], (info.height, info.width), 1, name=video_name, on_frame=on_frame))
 
     def stream_videos(self, video_paths: Sequence[str]) -> Dict[str, Any]:
         """Stream the videos one after another; returns the events and
@@ -344,7 +427,8 @@ class StreamingPipeline:
         into shared detector batches; per-video tracker/window state is kept
         apart, so events equal sequential streaming. Mixed resolutions run as
         one group per resolution. ``on_event(ScoreEvent)`` fires as each
-        scored window is fetched."""
+        scored window is fetched. The result's ``host_path['decode']`` is
+        'native' or 'python' (the class docstring)."""
         from cvsd_tpu_torch.data.video import video_info
 
         t0 = time.perf_counter()
@@ -360,9 +444,7 @@ class StreamingPipeline:
         n_frames = 0
         n_videos = 0
         for resolution, paths in groups.items():
-            reader = RoundRobinReader(
-                self, [VideoFileSource(p, self.frame_stride) for p in paths], resolution,
-                max_streams)
+            reader = self._video_reader(paths, resolution, max_streams)
             events.extend(self.run_stream(reader, on_event))
             n_frames += reader.n_frames
             n_videos += reader.n_opened
@@ -374,6 +456,7 @@ class StreamingPipeline:
             "seconds": dt, "fps": n_frames / dt if dt > 0 else 0.0,
             "videos_per_hour": n_videos / dt * 3600 if dt > 0 else 0.0,
             "stage_seconds": dict(self._stage_seconds),
+            "host_path": {"decode": "native" if self.native_decode else "python"},
         }
 
     def run_stream(self, read_batch: Callable[[], Tuple[np.ndarray, List, int]],

@@ -11,8 +11,16 @@ asked for, each into its own directory, and prints one JSON line per row.
     python examples_torch/synthetic_auc_probe.py --out DIR --rows 64:60 128:80
 
 Each row retrains the detector and the pose net from the example's seed, so
-the detector rows say whether those stages repeat. Default device: the CUDA
-card. Needs cv2, as the example does.
+the detector rows say whether those stages repeat. With ``--weights-from
+DIR`` the rows skip both trainings and run the example's later stages
+(render, extract, train the Shopformer, stream) on the ``detector.msgpack``
+and ``pose_topdown.msgpack`` in DIR, as either package's example saves
+them: a JAX run's weights through the port's stages.
+
+    python examples_torch/synthetic_auc_probe.py --out DIR --rows 64:60 \
+        --weights-from JAX_EXAMPLE_OUT --device cpu
+
+Default device: the CUDA card. Needs cv2, as the example does.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import end_to_end_synthetic as example  # noqa: E402
 from cvsd_tpu_torch.data.render import rendered_detection_batch  # noqa: E402
 from cvsd_tpu_torch.eval.detection import evaluate_detector  # noqa: E402
 from cvsd_tpu_torch.models.detector import load_detector_checkpoint, make_detect_fn  # noqa: E402
+from cvsd_tpu_torch.models.pose_topdown import load_pose_topdown_checkpoint  # noqa: E402
 from cvsd_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 HELD_OUT_SCENES = 256
@@ -57,6 +66,30 @@ def detector_readings(path: str, img_size: int, device) -> Dict[str, Any]:
     return out
 
 
+def later_stages(weights_dir: str, n_videos: int, epochs: int, out: str,
+                 device) -> Dict[str, Any]:
+    """The example's stages 2-4 (its ``main`` after the two trainings, at
+    the default flags otherwise) on saved detector and pose-net weights."""
+    os.makedirs(out, exist_ok=True)
+    detector, _variables, _meta = load_detector_checkpoint(
+        os.path.join(weights_dir, "detector.msgpack"), device)
+    pose_model = load_pose_topdown_checkpoint(
+        os.path.join(weights_dir, "pose_topdown.msgpack"), device).eval()
+    detector_state = detector.state_dict()
+    cfg = example.detection_config(128)
+    train_videos, test_videos, annotations, truth = example.render_videos(out, n_videos, 32)
+    poselift_dir = example.extract_poses(cfg, detector_state, pose_model, train_videos,
+                                         test_videos, annotations, out, device)
+    trainer, artifact = example.train_scorer(cfg, poselift_dir, epochs, out, device)
+    stream = example.stream_and_evaluate(cfg, trainer.scorer, detector_state, pose_model,
+                                         test_videos, annotations, truth, [1], device)
+    return {"videos": stream["videos"],
+            "extracted_pose_auc": artifact["test_metrics"]["auc_roc"],
+            "video_metrics": {k: v["auc_roc"] for k, v in
+                              (artifact["video_metrics"] or {}).items()},
+            "streaming": stream["streaming"]}
+
+
 def main(argv=None) -> List[Dict[str, Any]]:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -64,6 +97,9 @@ def main(argv=None) -> List[Dict[str, Any]]:
     p.add_argument("--rows", nargs="+", default=["64:60", "128:80"],
                    help="train-videos:epochs pairs, one chain run each")
     p.add_argument("--device", default=None)
+    p.add_argument("--weights-from", default=None,
+                   help="a directory with detector.msgpack and pose_topdown.msgpack: skip "
+                        "the two trainings and run the later stages on these weights")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     rows = []
@@ -80,10 +116,13 @@ def main(argv=None) -> List[Dict[str, Any]]:
 
         example.stream_and_evaluate = capture
         try:
-            flags = ["--train-videos", str(n_videos), "--epochs", str(epochs), "--out", out]
-            if args.device:
-                flags += ["--device", args.device]
-            results = example.main(flags)
+            if args.weights_from:
+                results = later_stages(args.weights_from, n_videos, epochs, out, device)
+            else:
+                flags = ["--train-videos", str(n_videos), "--epochs", str(epochs), "--out", out]
+                if args.device:
+                    flags += ["--device", args.device]
+                results = example.main(flags)
         finally:
             example.stream_and_evaluate = stream_and_evaluate
         per_video = Counter(e.video for e in captured["events"])
@@ -95,7 +134,9 @@ def main(argv=None) -> List[Dict[str, Any]]:
             "streaming_video_auc": {k: v["video_auc"] for k, v in results["streaming"].items()},
             "event_auc": results["streaming"]["max"]["event_auc"],
             "windows": int(sum(counts)), "windows_per_video": counts,
-            "detector": detector_readings(os.path.join(out, "detector.msgpack"), 128, device),
+            "detector": detector_readings(
+                os.path.join(args.weights_from or out, "detector.msgpack"), 128, device),
+            "weights_from": args.weights_from,
         }
         rows.append(record)
         print("probe_row " + json.dumps(record), flush=True)

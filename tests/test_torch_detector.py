@@ -121,7 +121,7 @@ def test_build_detector_seeded_and_unported_options():
     """Seeded builds repeat; v8dfl and flip-TTA build (tests/test_torch_v8.py
     holds them to JAX); int8 builds the QuantPersonDetector
     (tests/test_torch_int8.py holds it to JAX); the plain-XLA NMS methods
-    still raise."""
+    build too, and an unknown one raises."""
     cfg = {"detector": {"img_size": 64, "width_mult": 0.25, "depth_mult": 0.34,
                         "dtype": "float32", "pose_head": True}}
     a = build_detector(cfg, device="cpu", seed=3).state_dict()
@@ -132,5 +132,6 @@ def test_build_detector_seeded_and_unported_options():
     make_detect_fn(build_detector(cfg, device="cpu"), tta_flip=True)
     q = build_detector({"detector": {**cfg["detector"], "quantized": True}}, device="cpu")
     assert type(q).__name__ == "QuantPersonDetector" and q.num_keypoints == 17
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_detect_fn(build_detector(cfg, device="cpu"), nms_method="fixpoint")
+    make_detect_fn(build_detector(cfg, device="cpu"), nms_method="fixpoint")
+    with pytest.raises(ValueError, match="unknown NMS method"):
+        make_detect_fn(build_detector(cfg, device="cpu"), nms_method="bogus")

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of cvsd_tpu_torch, no script of
+"""The port stands alone: no module of cvsd_tpu_torch (the native host
+runtime's ctypes bindings included, which build nothing at import), no script of
 examples_torch/ and nothing chip_smoke.py imports loads jax, flax or
 cvsd_tpu, nor msgpack, cv2, yaml or pandas, which the card machine may
 lack; and the entry points' default device (the CUDA card) raises when
@@ -54,16 +55,27 @@ def test_port_and_chip_smoke_import_no_jax_or_cvsd_tpu():
         print("PARALLEL", sorted(m for m in sys.modules
                                  if m.startswith(("cvsd_tpu_torch.parallel",
                                                   "cvsd_tpu_torch.utils.compile_cache"))))
+        # the native host runtime: imported, nothing built or loaded at import
+        from cvsd_tpu_torch import native
+        from cvsd_tpu_torch.native import video
+        print("NATIVE", sorted(m for m in sys.modules
+                               if m.startswith(("cvsd_tpu_torch.native",
+                                                "cvsd_tpu_torch.utils.host_build"))),
+              native._state["lib"] is None and video._vstate["lib"] is None)
     """)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     assert r.stdout.count("EXAMPLE examples_torch/") == len(list(REPO.glob("examples_torch/*.py")))
-    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 84
+    assert int(r.stdout.split("PORT_MODULES")[1].split()[0]) >= 87
     # the parallel layer and the compile cache are counted (slice 10)
     assert r.stdout.split("PARALLEL")[1].split("\n")[0].strip() == str(sorted([
         "cvsd_tpu_torch.parallel", "cvsd_tpu_torch.parallel.distributed",
         "cvsd_tpu_torch.parallel.dryrun", "cvsd_tpu_torch.parallel.mesh",
         "cvsd_tpu_torch.utils.compile_cache"]))
+    # the native host runtime is counted and builds nothing at import (slice 11)
+    assert r.stdout.split("NATIVE")[1].split("\n")[0].strip() == str(sorted([
+        "cvsd_tpu_torch.native", "cvsd_tpu_torch.native.video",
+        "cvsd_tpu_torch.utils.host_build"])) + " True"
 
 
 def test_cuda_mesh_raises_without_cuda(tmp_path):

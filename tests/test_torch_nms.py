@@ -166,10 +166,31 @@ def test_pallas_seq_is_accepted():
 
 @pytest.mark.parametrize("method", ["fixpoint", "xla"])
 def test_only_the_kernel_nms_method_is_accepted(method):
-    """Only the kernel methods ('pallas_fixpoint', 'pallas_seq') are ported;
-    the pipeline refuses the plain-XLA ones before building a model."""
-    with pytest.raises(NotImplementedError, match="pallas_fixpoint"):
-        _pipeline_with_nms_method(method)
+    """The reference's plain-XLA methods ('fixpoint', 'xla') are accepted
+    too (they run the plain PyTorch versions on every device): a pipeline
+    built with one gives the default 'pallas_fixpoint' pipeline's
+    detections."""
+    frames = np.random.default_rng(5).integers(0, 256, (2, 48, 64, 3)).astype(np.uint8)
+    got = _pipeline_with_nms_method(method).detect_frames(frames)
+    fix = _pipeline_with_nms_method("pallas_fixpoint").detect_frames(frames)
+    for g, f in zip(got, fix):
+        np.testing.assert_array_equal(g, f)
+
+
+@pytest.mark.parametrize("method", ["pallas_fixpoint", "fixpoint", "pallas_seq", "xla"])
+@pytest.mark.parametrize("case", list(_batched_inputs()), ids=lambda c: c[0])
+def test_batched_nms_each_method_matches_jax(case, method):
+    """Each of the four ``nms_method``s equals the reference's
+    ``batched_nms`` under the same method, exactly (the kernel methods'
+    Pallas kernels in interpret mode on the CPU)."""
+    _name, boxes, scores, kw = case
+    ref = [np.asarray(o) for o in batched_nms_jax(jnp.asarray(boxes), jnp.asarray(scores),
+                                                  method=method, **kw)]
+    got = [o.numpy() for o in batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                          method=method, **kw)]
+    for name, r, g in zip(("boxes", "scores", "valid", "anchor_idx"), ref, got):
+        assert r.dtype == g.dtype, name
+        np.testing.assert_array_equal(g, r, err_msg=name)
 
 
 def test_unknown_nms_method_raises():

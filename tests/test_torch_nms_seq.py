@@ -125,16 +125,27 @@ def test_nms_seq_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_nms_methods_outside_the_kernels_raise():
-    boxes, scores = torch.zeros(1, 8, 4), torch.ones(1, 8)
+    """The plain methods ('fixpoint', 'xla') launch no kernel: on the CPU
+    they give the kernel methods' outputs, and no launch counter moves
+    (nothing is built). Only an unknown name raises."""
+    rng = np.random.default_rng(11)
+    cxy = rng.uniform(20, 100, (2, 40, 2)).astype(np.float32)
+    wh = rng.uniform(10, 40, (2, 40, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1))
+    scores = torch.from_numpy(rng.uniform(size=(2, 40)).astype(np.float32))
+    before = (nms_seq_cuda.launches, nms_seq_multi_cuda.launches)
+    ref = batched_nms(boxes, scores, method="pallas_seq")
     for method in ("fixpoint", "xla"):
-        with pytest.raises(NotImplementedError, match="pallas_seq"):
-            batched_nms(boxes, scores, method=method)
+        for r, g in zip(ref, batched_nms(boxes, scores, method=method)):
+            assert torch.equal(r, g), method
+    assert (nms_seq_cuda.launches, nms_seq_multi_cuda.launches) == before
     with pytest.raises(ValueError, match="unknown NMS method"):
         batched_nms(boxes, scores, method="bogus")
     cfg = get_default_config()
     cfg["detector"].update(img_size=64, width_mult=0.25, depth_mult=0.34, dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_detect_fn(build_detector(cfg, device="cpu"), nms_method="xla")
+    make_detect_fn(build_detector(cfg, device="cpu"), nms_method="xla")
+    with pytest.raises(ValueError, match="unknown NMS method"):
+        make_detect_fn(build_detector(cfg, device="cpu"), nms_method="bogus")
 
 
 @pytest.mark.parametrize("group", [1, 5, 32])

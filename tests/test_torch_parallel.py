@@ -36,6 +36,31 @@ def test_initialize_distributed_single_process():
     assert not dist.is_initialized()
 
 
+@pytest.mark.parametrize("device,card,backend", [
+    ("cpu", False, "gloo"),     # the CPU asked for: gloo, with or without a card
+    ("cpu", True, "gloo"),
+    (None, True, "nccl"),       # unset: the card, NCCL
+    ("cuda", True, "nccl"),
+    (None, False, None),        # unset or the card without a card: raises
+    ("cuda", False, None),
+])
+def test_initialize_distributed_follows_the_device(monkeypatch, device, card, backend):
+    """initialize_distributed joins the group of the device asked for, as
+    maybe_mesh does: 'cpu' -> gloo; anything else resolves the card first
+    and joins NCCL, raising without one (before any group is joined)."""
+    joined = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+    monkeypatch.setattr(tdist.dist, "init_process_group", lambda **kw: joined.append(kw))
+    if backend is None:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tdist.initialize_distributed("localhost:1234", 2, 1, device=device)
+        assert joined == []
+        return
+    assert tdist.initialize_distributed("localhost:1234", 2, 1, device=device) is True
+    assert joined == [dict(backend=backend, init_method="tcp://localhost:1234",
+                           world_size=2, rank=1)]
+
+
 def test_process_local_batch_slice_without_a_group():
     assert tdist.process_local_batch_slice(64) == (64, 0)
 

@@ -2,7 +2,7 @@
 the CPU: the CSV writer's bytes, the video list and its routing, the whole
 driver on a small UCF-Crime layout (in both NMS methods), the multiplexed
 driver's bytes against the sequential one's in the three letterbox modes,
-the preprocess CLI, the options the port refuses, and the float32 entry
+the preprocess CLI, the options that raise, and the float32 entry
 points turning TF32 off.
 
 The JAX side decodes with cv2: its VideoBatcher would pick the native
@@ -248,20 +248,32 @@ def test_preprocess_cli_matches_library(ucf_dir, tmp_path, capsys):
         assert _read(os.path.join(lib_dir, name)) == _read(os.path.join(cli_dir, name))
 
 
-def test_unported_options_raise(ucf_dir, tmp_path, tmp_path_factory):
-    """native_decode is refused; a card's mesh raises on a host without a
-    card before any file is written (meshed preprocessing itself:
-    tests/test_torch_parallel_detection.py)."""
+def test_unported_options_raise(ucf_dir, tmp_path, tmp_path_factory, monkeypatch):
+    """A card's mesh raises on a host without a card before any file is
+    written (meshed preprocessing itself:
+    tests/test_torch_parallel_detection.py). native_decode is ported
+    (tests/test_torch_native.py): an explicit true raises naming opencv4
+    where the native decoder cannot be built, before any file is written."""
+    from cvsd_tpu_torch.native import video as native_video
+    from cvsd_tpu_torch.utils import host_build
+
     _cfg_j, cfg = _configs()
     with cuda_mesh_config(tmp_path_factory.mktemp("mesh")) as mc, \
             pytest.raises(RuntimeError, match="CUDA"):
         preprocess.preprocess_ucf_crime(cfg, ucf_dir, output_dir=str(tmp_path), mesh_config=mc)
+
+    def no_opencv():
+        raise host_build.MissingOpenCV("pkg-config opencv4 failed")
+
+    monkeypatch.setattr(native_video, "_vstate", {"lib": None, "failure": None, "warned": False})
+    monkeypatch.setattr(host_build, "opencv_flags", no_opencv)
     cfg["detector"]["native_decode"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        preprocess.preprocess_ucf_crime(cfg, ucf_dir, output_dir=str(tmp_path), device="cpu")
+    with pytest.raises(RuntimeError, match="opencv4"):
+        preprocess.preprocess_ucf_crime(cfg, ucf_dir, output_dir=str(tmp_path), device="cpu",
+                                        max_streams=2)
     pipe = preprocess.DetectionPipeline(_configs()[1], device="cpu")
     pipe.config = cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="opencv4"):
         preprocess.process_videos_multiplexed(pipe, [])
     assert not os.listdir(str(tmp_path))
 

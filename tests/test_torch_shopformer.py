@@ -56,6 +56,49 @@ def test_compute_anomaly_score_matches_jax(variant, poses):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("variant", ["v2", "v1"])
+def test_bf16_scorer_matches_jax_bf16(variant, capsys):
+    """model.dtype bfloat16 (float32 parameters, flax's compute dtype): the
+    port's ShopformerScorer against the JAX package's on 256 windows, the
+    same weights. Both come out in bfloat16 and the gap is stated as the
+    mean relative gap over the windows: the port's gap to JAX's bfloat16
+    scores must be no larger than JAX's own bfloat16-vs-float32 gap (both
+    printed, with the largest gaps beside them). The packages round at the
+    same places (models/layers.py); what differs is float32 summation order
+    in the convolutions, which bfloat16 rounding magnifies (seeds 5-6:
+    port 0.0005-0.0020 against JAX's 0.0014-0.0024). float32 is untouched."""
+    x = np.random.default_rng(11).normal(size=(256, 12, 18, 2)).astype(np.float32)
+    cfg, jm, variables, tm = _pair(variant, seed=5)
+    scores = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = {**cfg, "model": {**cfg["model"], "dtype": dtype}}
+        scores["jax", dtype] = np.asarray(ShopformerScorerJax(
+            ShopformerJax.from_config(cfg_d), variables, cfg_d).score(x, 64), np.float32)
+        model = build_shopformer(cfg_d, device="cpu",
+                                 state_dict=flax_to_state_dict(variables, tm))
+        assert model.dtype == getattr(torch, dtype)
+        scores["port", dtype] = ShopformerScorer(model, cfg_d, device="cpu").score(x, 64)
+        assert scores["port", dtype].dtype == np.float32 and scores["port", dtype].shape == (256,)
+    with torch.no_grad():
+        assert model.compute_anomaly_score(torch.from_numpy(x[:4])).dtype == torch.bfloat16
+    bf16 = scores["port", "bfloat16"]
+    assert np.array_equal(torch.from_numpy(bf16).to(torch.bfloat16).float().numpy(), bf16)
+    np.testing.assert_allclose(scores["port", "float32"], scores["jax", "float32"],
+                               rtol=1e-5, atol=1e-6)
+
+    def rel(a, b):
+        return np.abs(a - b) / np.abs(b)
+
+    port_gap = rel(bf16, scores["jax", "bfloat16"])
+    jax_gap = rel(scores["jax", "bfloat16"], scores["jax", "float32"])
+    with capsys.disabled():
+        print(f"\nbf16 Shopformer {variant}: port vs JAX bf16 mean {port_gap.mean():.3e} "
+              f"(max {port_gap.max():.3e}); JAX bf16 vs float32 mean {jax_gap.mean():.3e} "
+              f"(max {jax_gap.max():.3e})")
+    assert port_gap.mean() <= jax_gap.mean()
+    assert port_gap.max() < 2e-2 and np.isfinite(bf16).all()
+
+
 def test_scorer_ragged_tail_matches_jax(poses):
     """ShopformerScorer.score with 9 windows at batch 4 (2 full + a padded,
     masked tail of 1) -> 9 scores equal to JAX's within 1e-5 relative."""

@@ -140,15 +140,18 @@ def test_stream_video_matches_concurrent(fixture):
 
 @pytest.mark.parametrize("frame_stride", [1, 3])
 def test_video_batcher_matches_jax(fixture, frame_stride):
-    """The port's VideoBatcher copy yields the reference's batches exactly."""
+    """The port's VideoBatcher copy yields the reference's batches exactly,
+    on the Python path and on the default one (native decode and ring where
+    they build, in both packages; tests/test_torch_native.py holds every
+    path)."""
     vids = fixture[0]
-    got = list(VideoBatcher(vids[0], batch_size=16, frame_stride=frame_stride))
-    ref = list(VideoBatcherJax(vids[0], batch_size=16, frame_stride=frame_stride,
-                               use_native_ring=False, use_native_decode=False))
-    assert len(got) == len(ref) > 0
-    for g, r in zip(got, ref):
-        for name in ("frames", "frame_numbers", "mask", "timestamps_ms"):
-            np.testing.assert_array_equal(getattr(g, name), getattr(r, name), err_msg=name)
+    for kw in (dict(use_native_ring=False, use_native_decode=False), {}):
+        got = list(VideoBatcher(vids[0], batch_size=16, frame_stride=frame_stride, **kw))
+        ref = list(VideoBatcherJax(vids[0], batch_size=16, frame_stride=frame_stride, **kw))
+        assert len(got) == len(ref) > 0
+        for g, r in zip(got, ref):
+            for name in ("frames", "frame_numbers", "mask", "timestamps_ms"):
+                np.testing.assert_array_equal(getattr(g, name), getattr(r, name), err_msg=name)
 
 
 def test_aggregate_events(fixture):
