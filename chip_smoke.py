@@ -151,9 +151,19 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      frames/s and read times, one detect batch under the four nms_methods
      (equal outputs), the default Shopformer in bfloat16 and float32
      (windows/s, score gap)
+  18. the utility tools of examples_torch (drive_utilities), each part's
+     nms_fixpoint launches counted: leak_bisect in its own process and
+     sweep_extracted at a tiny phase A (finite AUCs) while two processes
+     render the hard scenes; train_detector_hard at its own width (100
+     steps, AP50, mAP50-95) and its resume against an uninterrupted run;
+     eval_int8_accuracy on that detector (float, int8 and QAT AP50, the
+     torch._int_mm calls); the soak's pass loop on the production
+     configuration (events repeat on every steady pass; fps drift, RSS and
+     device-memory growth a pass)
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line,
-     with each kernel's launches in every counted run, ``launches_parallel``
-     and ``launches_native`` included), then the result line
+     with each kernel's launches in every counted run, ``launches_parallel``,
+     ``launches_native`` and ``launches_utilities`` included), then the
+     result line
 
 The port runs float32 as float32: building a float32 entry point turns
 TF32 off (``utils/device.py::use_float32_math``), so the serve subprocess
@@ -166,9 +176,10 @@ small detector moves the keypoints little either way).
 Kernel launch counts are set to 0 just before each detect, stream, serve,
 preprocess, detector-eval, int8 detect, phase-13 run (the imported
 detector, cli.stream, the artifact in its own process), production run,
-phase-16 meshed run and phase-17 run drives a pipeline and read just after (the serve subprocess's launches are
-its own; phase 7(c) counts the in-process server's; each example of phase
-15 counts its own, in its child process); the launches that compare a kernel
+phase-16 meshed run, phase-17 run and phase-18 tool drives a pipeline
+and read just after (the serve subprocess's launches are its own; phase
+7(c) counts the in-process server's; each example of phase 15 counts its
+own, in its child process); the launches that compare a kernel
 with its plain version are not counted. The grouped sequential kernel has no
 entry point (in the reference only a test reaches it), so no phase launches
 it and its count on the main path is 0. Bounds are taken against the H100
@@ -180,6 +191,7 @@ from __future__ import annotations
 
 import ast
 import base64
+import copy
 import importlib.util
 import json
 import os
@@ -3256,10 +3268,12 @@ finally:
 # reduced flags, each example 1-2 minutes on an H100 (at 400 detector and 600 pose
 # steps the synthetic chain took 179 s; at 120 detector steps Pipeline A's
 # detector found no one in the anomalous videos, so its CSV was never
-# written); no AUC bar at this size
+# written); no AUC bar at this size. The synthetic chain was cut (from 250
+# detector and 300 pose steps, 16 videos and 10 epochs) when phase 18
+# brought the script to 1,152-1,180 s
 EXAMPLE_FLAGS = {
-    "end_to_end_synthetic.py": ["--steps", "250", "--pose-steps", "300", "--train-videos", "16",
-                                "--test-videos", "16", "--epochs", "10"],
+    "end_to_end_synthetic.py": ["--steps", "150", "--pose-steps", "200", "--train-videos", "12",
+                                "--test-videos", "12", "--epochs", "8"],
     "end_to_end_pipeline_a.py": ["--videos-per-class", "8", "--test-per-class", "8",
                                  "--det-steps", "300", "--epochs", "10"],
 }
@@ -3931,6 +3945,239 @@ def drive_native(tmp: str, dev, nms_mod, host_frames: list, card: str) -> tuple:
     if rel.mean() > 2e-2:
         fail(f"the bfloat16 Shopformer's scores are {rel.mean():.2e} from float32's on average")
     return out, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the utility tools (examples_torch)
+
+# (a) train_detector_hard at its own width (0.375, img 320, batch 16): two
+# chunks of 50 steps, 16 held-out scenes. The chunks are seeded apart, so
+# two processes render them while (d) and (e) run (the host rendering takes
+# about a minute; (c)'s fps is read with nothing beside it, and (d) runs in
+# a process of its own, so no chunk lands in its tracemalloc readings)
+UTIL_HARD_FLAGS = ["--steps", "100", "--scan-chunk", "50", "--eval-size", "16"]
+UTIL_HARD_RESUME_AT = 50
+UTIL_RENDER_WORKERS = 2
+# (b) eval_int8_accuracy on (a)'s checkpoint
+UTIL_INT8_FLAGS = ["--calib-batches", "2", "--qat-steps", "25", "--qat-batch", "8",
+                   "--eval-size", "16"]
+# (c) the soak's pass loop on the production configuration; (d) leak_bisect
+UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0", "--min-passes", "5",
+                   "--max-streams", "8"]
+UTIL_BISECT_FLAGS = ["--passes", "3", "--videos", "2", "--frames", "24"]
+# (e) sweep_extracted: a tiny phase A (at 100 detector steps the detector
+# found no one and both AUCs read 0.5), one config x 2 seeds
+UTIL_SWEEP_FLAGS = ["--train-videos", "6", "--test-videos", "6", "--seeds", "2",
+                    "--steps", "200", "--pose-steps", "100", "--configs", "tok4"]
+
+
+def _state_gap(a, b) -> float:
+    """The largest |a - b| over two trainers' weights, statistics and EMA."""
+    xs = list(a.model.state_dict().values()) + list(a.ema_params or [])
+    ys = list(b.model.state_dict().values()) + list(b.ema_params or [])
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
+
+
+def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
+    """18. The tools of examples_torch on the card, through their functions,
+    each part's nms_fixpoint launches counted (0 fails). (a)'s training
+    scenes render in two processes while (d) and (e) run. (d) leak_bisect
+    for 3 passes in its own process; (e) sweep_extracted with a tiny phase
+    A and tok4 x 2 seeds: finite AUCs; (a) train_detector_hard at its own
+    width for 100 steps in 2 chunks, AP50 and mAP50-95 on 16 held-out
+    scenes, then 50 steps, the partial files and 50 more in a fresh trainer
+    against the 100 uninterrupted steps: bit-equal where phase 11's
+    detector step repeats bit for bit (``repeat_bitwise``), else the resumed
+    run's gap printed beside a second uninterrupted run's; (b)
+    eval_int8_accuracy on (a)'s checkpoint with 2 calibration batches and
+    25 QAT steps: the float, int8 and QAT AP50 and the int8 GEMM
+    (``torch._int_mm``) calls, which must be more than 0; (c) the soak's
+    pass loop on configs/streaming_production.yaml (full width) over 8
+    rendered 96-frame videos, 5 passes: every steady pass's events equal
+    pass 1's; the fps drift, the RSS and device-memory growth a pass.
+    Without cv2 (c)-(e) must exit naming it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tools = os.path.join(root, "examples_torch")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import eval_int8_accuracy
+    import soak_streaming
+    import sweep_extracted
+    import train_detector_hard as hard
+
+    out, counts = {"cv2": importlib.util.find_spec("cv2") is not None}, {}
+
+    def part(name: str, fn):
+        reset_launches(nms_mod)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c = launches(nms_mod)
+        counts[name] = c
+        if c["nms_fixpoint"] <= 0:
+            fail(f"[utilities] {name} launched nms_fixpoint no time: {c}")
+        return res, seconds, c
+
+    args = hard.parser().parse_args([*UTIL_HARD_FLAGS, "--out", os.path.join(tmp, "hard.json"),
+                                     "--device", str(dev)])
+    src = hard.scene_source()
+    t_render = time.perf_counter()
+    pool = ProcessPoolExecutor(UTIL_RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        pending = {start: pool.submit(hard.scene_chunk, args.seed, start,
+                                      min(args.scan_chunk, args.steps - start), args.batch,
+                                      args.img, args.max_persons, src)
+                   for start in range(0, args.steps, args.scan_chunk)}
+        if out["cv2"]:
+            drive_bisect_and_sweep(tmp, dev, card, out, counts, part, root, tools,
+                                   sweep_extracted)
+        rendered = {(args.seed, start): f.result() for start, f in pending.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    render_s = time.perf_counter() - t_render
+
+    # (a) the hard-scene detector, and resume against an uninterrupted run
+    render = hard.scene_chunk
+
+    def cached_chunk(seed, done, *a):  # every run below trains on the same two chunks
+        return rendered[(seed, done)]
+
+    def train_and_evaluate():
+        trainer = hard.build_trainer(args, dev)
+        t0 = time.perf_counter()
+        losses = hard.train(trainer, args, src)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        return trainer, losses, train_s, hard.evaluate(trainer, args, src, dev)
+
+    hard.scene_chunk = cached_chunk
+    try:
+        (trainer, losses, train_s, res), sec, c = part("train_detector_hard", train_and_evaluate)
+        ckpt = os.path.join(tmp, "hard.msgpack")
+        trainer.save(ckpt, use_ema=bool(args.ema))
+        rargs = copy.copy(args)
+        rargs.out = os.path.join(tmp, "resumed.json")
+        hard.train(hard.build_trainer(rargs, dev), rargs, src, stop_at=UTIL_HARD_RESUME_AT)
+        resumed = hard.build_trainer(rargs, dev)
+        r_losses = hard.train(resumed, rargs, src)
+        gap = _state_gap(trainer, resumed)
+        bitwise = gap == 0.0 and losses == r_losses
+        resume = {"bitwise": bitwise, "max_gap": gap, "phase11_repeat_bitwise": repeat_bitwise}
+        if not bitwise:
+            rargs.out = os.path.join(tmp, "again.json")
+            again = hard.build_trainer(rargs, dev)
+            hard.train(again, rargs, src)
+            resume["repeat_max_gap"] = _state_gap(trainer, again)
+    finally:
+        hard.scene_chunk = render
+    summary = {"steps": args.steps, "img": args.img, "batch": args.batch,
+               "width_mult": args.width, "ap50": float(res["ap"]),
+               "map50_95": float(res["map50_95"]), "num_pred": int(res["num_pred"]),
+               "loss_first": losses[0], "loss_last": losses[-1], "render_seconds": render_s,
+               "train_seconds": train_s, "steps_per_s": args.steps / train_s, "seconds": sec,
+               "resume": resume}
+    out["train_detector_hard"] = summary
+    log(f"[utilities] (a) train_detector_hard {' '.join(UTIL_HARD_FLAGS)} (width {args.width}, "
+        f"img {args.img}, batch {args.batch}): the scenes rendered by {UTIL_RENDER_WORKERS} "
+        f"processes beside (d)-(e), ready after {render_s:.1f} s; loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}, {args.steps / train_s:.2f} steps/s; AP50 "
+        f"{summary['ap50']:.4f}, mAP50-95 {summary['map50_95']:.4f} on {args.eval_size} "
+        f"held-out scenes; resumed {UTIL_HARD_RESUME_AT} + {args.steps - UTIL_HARD_RESUME_AT} == "
+        f"uninterrupted bit for bit: {bitwise} (max gap {gap:.3e}; phase 11's step repeats "
+        f"bit for bit: {repeat_bitwise}); {sec:.1f} s; nms launches {c} [{card}]")
+    if not bitwise:
+        log(f"[utilities] (a) resume gap {gap:.3e} beside a second uninterrupted run's "
+            f"{resume['repeat_max_gap']:.3e}")
+        if repeat_bitwise:
+            fail("the resumed hard-scene run differs from the uninterrupted one where the "
+                 f"detector step repeats bit for bit: {resume}")
+    if not np.isfinite(losses).all() or not np.isfinite(summary["map50_95"]):
+        fail(f"train_detector_hard gave a non-finite loss or mAP: {summary}")
+
+    # (b) int8 accuracy on (a)'s checkpoint
+    int8_conv_gemm.launches = 0
+    res_b, sec, c = part("eval_int8_accuracy", lambda: eval_int8_accuracy.main(
+        ["--checkpoint", ckpt, *UTIL_INT8_FLAGS, "--out", os.path.join(tmp, "int8.json"),
+         "--device", str(dev)]))
+    gemm = int8_conv_gemm.launches
+    aps = {k: res_b[k]["ap50"] for k in ("float", "int8", "int8_qat")}
+    out["eval_int8_accuracy"] = {"ap50": aps, "ap50_delta": res_b["ap50_delta"],
+                                 "int_mm_calls": gemm, "seconds": sec}
+    log(f"[utilities] (b) eval_int8_accuracy {' '.join(UTIL_INT8_FLAGS)}: AP50 float "
+        f"{aps['float']:.4f}, int8 {aps['int8']:.4f}, int8 + 25 QAT steps "
+        f"{aps['int8_qat']:.4f}; {gemm} torch._int_mm calls; {sec:.1f} s; nms launches {c} "
+        f"[{card}]")
+    if gemm <= 0 or not all(np.isfinite(v) for v in aps.values()):
+        fail(f"eval_int8_accuracy ran {gemm} int8 GEMMs, AP50 {aps}")
+    if not out["cv2"]:
+        for script in ("soak_streaming.py", "leak_bisect.py", "sweep_extracted.py"):
+            r = subprocess.run([sys.executable, os.path.join(tools, script), "--out",
+                                os.path.join(tmp, "x")], cwd=root, capture_output=True,
+                               text=True, timeout=300)
+            if r.returncode == 0 or "cv2" not in r.stderr:
+                fail(f"examples_torch/{script} without cv2 exited {r.returncode}: "
+                     f"{r.stderr[-500:]}")
+        log("[utilities] no cv2 here: the soak, leak_bisect and sweep_extracted exit naming cv2")
+        return out, counts
+
+    # (c) the soak on the production configuration, at full width
+    res_c, sec, c = part("soak_streaming", lambda: soak_streaming.main(
+        [*UTIL_SOAK_FLAGS, "--config", os.path.join(root, PROD_CONFIG), "--out",
+         os.path.join(tmp, "soak"), "--artifact", os.path.join(tmp, "soak.json"),
+         "--device", str(dev)]))
+    v = res_c["verdict"]
+    out["soak_streaming"] = {"verdict": v, "series": res_c["series"], "seconds": sec}
+    log(f"[utilities] (c) soak_streaming on {PROD_CONFIG}, {' '.join(UTIL_SOAK_FLAGS)}: "
+        f"{v['passes']} passes, events a pass {[r['events'] for r in res_c['series']]}, every "
+        f"steady pass's events == pass 1's: {v['all_event_sets_match']}; fps "
+        f"{[r['fps'] for r in res_c['series']]} (drift {v['fps_drift_pct']} %); RSS "
+        f"{v['vmrss_growth_mb_per_pass']} MB a pass, device memory "
+        f"{v['device_allocated_growth_mb_per_pass']} MB a pass (peak "
+        f"{v['device_max_allocated_growth_mb_per_pass']}); {sec:.1f} s; nms launches {c} "
+        f"[{card}]")
+    if not v["all_event_sets_match"] or min(r["events"] for r in res_c["series"]) <= 0:
+        fail(f"the production soak's steady passes differ from pass 1 or scored nothing: {v}")
+    return out, counts
+
+
+def drive_bisect_and_sweep(tmp: str, dev, card: str, out: dict, counts: dict, part,
+                           root: str, tools: str, sweep_extracted) -> None:
+    """Phase 18's parts (d) and (e), into ``out`` and ``counts``."""
+    # (d) leak_bisect, in a process of its own: its RSS, tracemalloc and
+    # gc readings are then the tool's, not this script's 17 phases' heap
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", EXAMPLE_CHILD,
+                        os.path.join(tools, "leak_bisect.py"), *UTIL_BISECT_FLAGS, "--out",
+                        os.path.join(tmp, "bisect")], cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    sec = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"examples_torch/leak_bisect.py exited {r.returncode}: {r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    slopes = json.loads(next(x for x in lines if x.startswith('{"rss_mb_per_pass"')))
+    c = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
+    counts["leak_bisect"] = c
+    if c["nms_fixpoint"] <= 0:
+        fail(f"[utilities] leak_bisect launched nms_fixpoint no time: {c}")
+    out["leak_bisect"] = {"slopes": slopes, "seconds": sec}
+    log(f"[utilities] (d) leak_bisect {' '.join(UTIL_BISECT_FLAGS)} (its own process): a pass "
+        f"{json.dumps(slopes)}; {sec:.1f} s; nms launches {c} [{card}]")
+
+    # (e) sweep_extracted
+    res_e, sec, c = part("sweep_extracted", lambda: sweep_extracted.main(
+        [*UTIL_SWEEP_FLAGS, "--out", os.path.join(tmp, "sweep"), "--device", str(dev)]))
+    aucs = [a for r in res_e for a in r["window_aucs"]]
+    out["sweep_extracted"] = {"results": res_e, "seconds": sec}
+    log(f"[utilities] (e) sweep_extracted {' '.join(UTIL_SWEEP_FLAGS)}: window AUCs {aucs}; "
+        f"{sec:.1f} s; nms launches {c} [{card}]")
+    if len(aucs) != 2 or not all(np.isfinite(a) for a in aucs):
+        fail(f"sweep_extracted gave window AUCs {aucs}")
 
 
 def main() -> None:
@@ -4676,6 +4923,17 @@ def main() -> None:
     nat["seconds"] = time.perf_counter() - t17
     log(f"[native] phase 17 in {nat['seconds']:.1f} s")
 
+    # -- 18. the utility tools -----------------------------------------------------------
+    t18 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cvsd_utilities_")
+    try:
+        util, util_counts = drive_utilities(tmp, dev, nms_mod, card,
+                                            det_train["step_gap"]["f32"].get("repeat_bitwise"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    util["seconds"] = time.perf_counter() - t18
+    log(f"[utilities] phase 18 in {util['seconds']:.1f} s")
+
     # -- 6. phase summary, kernel list and result ------------------------------
     print(json.dumps({"card": card, "detect": detect, "detect_slice2": detect2, "score": score,
                       "stream": stream, "fixture": fixture, "stream_slice2": stream2,
@@ -4683,7 +4941,8 @@ def main() -> None:
                       "tabular": tabular, "pipeline_a_clis": clis, "train": train,
                       "detector_train": det_train, "int8": int8, "import_export": imp,
                       "production": prod, "examples": examples, "parallel": par,
-                      "native": nat, "seconds": time.perf_counter() - t_start}),
+                      "native": nat, "utilities": util,
+                      "seconds": time.perf_counter() - t_start}),
           flush=True)
     # launches: each kernel's count in the stream run of its slice (the whole
     # main path, detect to score); the grouped kernel is on no path
@@ -4715,6 +4974,7 @@ def main() -> None:
         k["launches_examples"] = {run: c[k["name"]] for run, c in example_counts.items()}
         k["launches_parallel"] = {run: c[k["name"]] for run, c in par_counts.items()}
         k["launches_native"] = {run: c[k["name"]] for run, c in nat_counts.items()}
+        k["launches_utilities"] = {run: c[k["name"]] for run, c in util_counts.items()}
         if k["library_ms"] is None:
             k["library_note"] = LIBRARY_NOTE
     print(json.dumps({"kernels": kernels}), flush=True)

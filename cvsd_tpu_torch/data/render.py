@@ -117,7 +117,8 @@ def _textured_background(rng: np.random.Generator, height: int, width: int) -> n
     """Low-frequency textured background + clutter rectangles, float [0,1]."""
     gh, gw = height // 16 + 2, width // 16 + 2
     coarse = rng.uniform(0.05, 0.55, (gh, gw, 3)).astype(np.float32)
-    up = np.kron(coarse, np.ones((16, 16, 1), np.float32))[:height, :width]
+    # np.kron(coarse, ones((16, 16, 1)))'s values (each times 1.0), by copies
+    up = coarse.repeat(16, axis=0).repeat(16, axis=1)[:height, :width]
     # cheap smoothing: average of 4 shifted copies
     sm = (up + np.roll(up, 5, 0) + np.roll(up, 5, 1) + np.roll(up, (5, 5), (0, 1))) / 4
     # horizontal brightness gradient (lighting)
@@ -134,6 +135,18 @@ def _textured_background(rng: np.random.Generator, height: int, width: int) -> n
         frame[y0:y0 + rh, x0:x0 + rw] = np.clip(color * tex, 0, 1)
     frame += rng.normal(0, 0.02, frame.shape).astype(np.float32)
     return np.clip(frame, 0.0, 1.0)
+
+
+_DISK_MASKS: dict = {}
+
+
+def _disk_mask(r: int) -> np.ndarray:
+    """The (2r+1, 2r+1) mask dy^2 + dx^2 <= r^2, built once per radius."""
+    m = _DISK_MASKS.get(r)
+    if m is None:
+        d = np.arange(-r, r + 1) ** 2
+        m = _DISK_MASKS[r] = d[:, None] + d[None, :] <= r * r
+    return m
 
 
 _LIMB_WIDTH = {  # relative to person scale: torso fat, fingers thin
@@ -170,8 +183,8 @@ def _draw_person(
         x0, x1 = max(xi - ri, 0), min(xi + ri + 1, width)
         if y0 >= y1 or x0 >= x1:
             return
-        yy, xx = np.mgrid[y0:y1, x0:x1]
-        m = (yy - yi) ** 2 + (xx - xi) ** 2 <= ri * ri
+        # the window's part of the disk (y - yi)^2 + (x - xi)^2 <= ri^2
+        m = _disk_mask(ri)[y0 - yi + ri:y1 - yi + ri, x0 - xi + ri:x1 - xi + ri]
         tex = rng.uniform(0.85, 1.15)
         frame[y0:y1, x0:x1][m] = np.clip(color * tex, 0, 1)
         owner[y0:y1, x0:x1][m] = pid

@@ -20,6 +20,11 @@ them: a JAX run's weights through the port's stages.
     python examples_torch/synthetic_auc_probe.py --out DIR --rows 64:60 \
         --weights-from JAX_EXAMPLE_OUT --device cpu
 
+``--det-seed S`` draws the detector trainer's init from seed S (the
+example's is 0) and changes nothing else: the data, the pose net and the
+later stages stay the example's, so rows of several seeds measure the
+spread that the detector's init alone makes.
+
 Default device: the CUDA card. Needs cv2, as the example does.
 """
 
@@ -36,6 +41,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
+
+import functools  # noqa: E402
 
 import end_to_end_synthetic as example  # noqa: E402
 from cvsd_tpu_torch.data.render import rendered_detection_batch  # noqa: E402
@@ -100,6 +107,9 @@ def main(argv=None) -> List[Dict[str, Any]]:
     p.add_argument("--weights-from", default=None,
                    help="a directory with detector.msgpack and pose_topdown.msgpack: skip "
                         "the two trainings and run the later stages on these weights")
+    p.add_argument("--det-seed", type=int, default=0,
+                   help="the detector trainer's init seed (the example's is 0); the data "
+                        "and every other stage stay the example's")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     rows = []
@@ -115,6 +125,8 @@ def main(argv=None) -> List[Dict[str, Any]]:
             return r
 
         example.stream_and_evaluate = capture
+        trainer_cls = example.DetectorTrainer
+        example.DetectorTrainer = functools.partial(trainer_cls, seed=args.det_seed)
         try:
             if args.weights_from:
                 results = later_stages(args.weights_from, n_videos, epochs, out, device)
@@ -125,6 +137,7 @@ def main(argv=None) -> List[Dict[str, Any]]:
                 results = example.main(flags)
         finally:
             example.stream_and_evaluate = stream_and_evaluate
+            example.DetectorTrainer = trainer_cls
         per_video = Counter(e.video for e in captured["events"])
         counts = [per_video.get(name, 0) for name in sorted(results["videos"])]
         record = {
@@ -136,7 +149,7 @@ def main(argv=None) -> List[Dict[str, Any]]:
             "windows": int(sum(counts)), "windows_per_video": counts,
             "detector": detector_readings(
                 os.path.join(args.weights_from or out, "detector.msgpack"), 128, device),
-            "weights_from": args.weights_from,
+            "weights_from": args.weights_from, "det_seed": args.det_seed,
         }
         rows.append(record)
         print("probe_row " + json.dumps(record), flush=True)

@@ -6,13 +6,20 @@ lack; and the entry points' default device (the CUDA card) raises when
 there is none, with no silent CPU fallback. Checked in fresh subprocesses:
 this test process has JAX loaded by conftest.py."""
 
+import ast
 import os
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
+# the CPU probes beside the JAX package: they import jax and cvsd_tpu inside
+# their functions and never run on the card
+CPU_PROBES = ("trainer_trajectory_probe.py", "jax_detector_seeds.py")
+JAX_SIDE = ("jax", "jaxlib", "flax", "optax", "cvsd_tpu")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -256,3 +263,29 @@ def test_import_and_export_entry_points_without_cuda(tmp_path):
     assert "FELL_BACK" not in r.stdout, r.stdout
     assert r.stdout.count("RAISED") == 4, r.stdout
     assert (tmp_path / "y.msgpack").exists()
+
+
+@pytest.mark.parametrize("script", sorted(p.name for p in (REPO / "examples_torch").glob("*.py")))
+def test_example_script_names_no_jax(script):
+    """Every examples_torch script but the declared CPU probes names no jax,
+    flax, optax or cvsd_tpu import anywhere in its source, inside its
+    functions too (so running it loads none of them; importing every script
+    in a fresh process is the first test's). A probe says so in its
+    docstring and imports them only inside its functions."""
+    tree = ast.parse((REPO / "examples_torch" / script).read_text())
+
+    def imported(nodes):
+        names = set()
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.add(node.module.split(".")[0])
+        return names & set(JAX_SIDE)
+
+    if script in CPU_PROBES:
+        assert "CPU probe" in ast.get_docstring(tree)
+        assert not imported(tree.body)
+        assert imported(ast.walk(tree))  # the probe reaches the JAX package
+    else:
+        assert not imported(ast.walk(tree)), sorted(imported(ast.walk(tree)))
