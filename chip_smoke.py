@@ -152,14 +152,14 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      (equal outputs), the default Shopformer in bfloat16 and float32
      (windows/s, score gap)
   18. the utility tools of examples_torch (drive_utilities), each part's
-     nms_fixpoint launches counted: leak_bisect in its own process and
-     sweep_extracted at a tiny phase A (finite AUCs) while two processes
-     render the hard scenes; train_detector_hard at its own width (100
+     nms_fixpoint launches counted: sweep_extracted at a tiny phase A
+     (finite AUCs) while the hard-scene tool renders its chunks in
+     processes of its own; train_detector_hard at its own width (100
      steps, AP50, mAP50-95) and its resume against an uninterrupted run;
      eval_int8_accuracy on that detector (float, int8 and QAT AP50, the
-     torch._int_mm calls); the soak's pass loop on the production
-     configuration (events repeat on every steady pass; fps drift, RSS and
-     device-memory growth a pass)
+     torch._int_mm calls); leak_bisect for 3 passes; the soak's pass loop
+     on the production configuration (events repeat on every steady pass;
+     fps drift, RSS and device-memory growth a pass)
   6. the phase numbers (JSON, one line), the kernel list (JSON, one line,
      with each kernel's launches in every counted run, ``launches_parallel``,
      ``launches_native`` and ``launches_utilities`` included), then the
@@ -3268,12 +3268,10 @@ finally:
 # reduced flags, each example 1-2 minutes on an H100 (at 400 detector and 600 pose
 # steps the synthetic chain took 179 s; at 120 detector steps Pipeline A's
 # detector found no one in the anomalous videos, so its CSV was never
-# written); no AUC bar at this size. The synthetic chain was cut (from 250
-# detector and 300 pose steps, 16 videos and 10 epochs) when phase 18
-# brought the script to 1,152-1,180 s
+# written); no AUC bar at this size
 EXAMPLE_FLAGS = {
-    "end_to_end_synthetic.py": ["--steps", "150", "--pose-steps", "200", "--train-videos", "12",
-                                "--test-videos", "12", "--epochs", "8"],
+    "end_to_end_synthetic.py": ["--steps", "250", "--pose-steps", "300", "--train-videos", "16",
+                                "--test-videos", "16", "--epochs", "10"],
     "end_to_end_pipeline_a.py": ["--videos-per-class", "8", "--test-per-class", "8",
                                  "--det-steps", "300", "--epochs", "10"],
 }
@@ -3951,19 +3949,18 @@ def drive_native(tmp: str, dev, nms_mod, host_frames: list, card: str) -> tuple:
 # phase 18: the utility tools (examples_torch)
 
 # (a) train_detector_hard at its own width (0.375, img 320, batch 16): two
-# chunks of 50 steps, 16 held-out scenes. The chunks are seeded apart, so
-# two processes render them while (d) and (e) run (the host rendering takes
-# about a minute; (c)'s fps is read with nothing beside it, and (d) runs in
-# a process of its own, so no chunk lands in its tracemalloc readings)
+# chunks of 50 steps, 16 held-out scenes. The tool renders its chunks in
+# processes of its own (about 45 s) from the call to ``chunks``, so they
+# render while (e) runs; (d) and (c) run with nothing beside them (no chunk
+# lands in (d)'s tracemalloc readings, and (c)'s fps is read alone)
 UTIL_HARD_FLAGS = ["--steps", "100", "--scan-chunk", "50", "--eval-size", "16"]
 UTIL_HARD_RESUME_AT = 50
-UTIL_RENDER_WORKERS = 2
 # (b) eval_int8_accuracy on (a)'s checkpoint
 UTIL_INT8_FLAGS = ["--calib-batches", "2", "--qat-steps", "25", "--qat-batch", "8",
                    "--eval-size", "16"]
-# (c) the soak's pass loop on the production configuration; (d) leak_bisect
-UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0", "--min-passes", "5",
-                   "--max-streams", "8"]
+# (c) the soak's pass loop on the production configuration for half a
+# minute (a pass took 5-7 s on an H100: 5-6 passes); (d) leak_bisect
+UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0.5", "--max-streams", "8"]
 UTIL_BISECT_FLAGS = ["--passes", "3", "--videos", "2", "--frames", "24"]
 # (e) sweep_extracted: a tiny phase A (at 100 detector steps the detector
 # found no one and both AUCs read 0.5), one config x 2 seeds
@@ -3981,24 +3978,21 @@ def _state_gap(a, b) -> float:
 def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     """18. The tools of examples_torch on the card, through their functions,
     each part's nms_fixpoint launches counted (0 fails). (a)'s training
-    scenes render in two processes while (d) and (e) run. (d) leak_bisect
-    for 3 passes in its own process; (e) sweep_extracted with a tiny phase
-    A and tok4 x 2 seeds: finite AUCs; (a) train_detector_hard at its own
-    width for 100 steps in 2 chunks, AP50 and mAP50-95 on 16 held-out
-    scenes, then 50 steps, the partial files and 50 more in a fresh trainer
-    against the 100 uninterrupted steps: bit-equal where phase 11's
-    detector step repeats bit for bit (``repeat_bitwise``), else the resumed
-    run's gap printed beside a second uninterrupted run's; (b)
-    eval_int8_accuracy on (a)'s checkpoint with 2 calibration batches and
-    25 QAT steps: the float, int8 and QAT AP50 and the int8 GEMM
-    (``torch._int_mm``) calls, which must be more than 0; (c) the soak's
-    pass loop on configs/streaming_production.yaml (full width) over 8
-    rendered 96-frame videos, 5 passes: every steady pass's events equal
-    pass 1's; the fps drift, the RSS and device-memory growth a pass.
-    Without cv2 (c)-(e) must exit naming it."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    scenes render in the tool's own processes while (e) runs: (e)
+    sweep_extracted with a tiny phase A and tok4 x 2 seeds: finite AUCs; (a)
+    train_detector_hard at its own width for 100 steps in 2 chunks, AP50
+    and mAP50-95 on 16 held-out scenes, then 50 steps, the partial files
+    and 50 more in a fresh trainer on the same chunks against the 100
+    uninterrupted steps: bit-equal where phase 11's detector step repeats
+    bit for bit (``repeat_bitwise``), else the resumed run's gap printed
+    beside a second uninterrupted run's; (b) eval_int8_accuracy on (a)'s
+    checkpoint with 2 calibration batches and 25 QAT steps: the float, int8
+    and QAT AP50 and the int8 GEMM (``torch._int_mm``) calls, which must be
+    more than 0; (d) leak_bisect for 3 passes; (c) the soak's pass loop on
+    configs/streaming_production.yaml (full width) over 8 rendered 96-frame
+    videos for half a minute: every steady pass's events equal pass 1's;
+    the fps drift, the RSS and device-memory growth a pass. Without cv2
+    (c)-(e) must exit naming it."""
     from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4006,6 +4000,7 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     if tools not in sys.path:
         sys.path.insert(0, tools)
     import eval_int8_accuracy
+    import leak_bisect
     import soak_streaming
     import sweep_extracted
     import train_detector_hard as hard
@@ -4028,64 +4023,58 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
                                      "--device", str(dev)])
     src = hard.scene_source()
     t_render = time.perf_counter()
-    pool = ProcessPoolExecutor(UTIL_RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        pending = {start: pool.submit(hard.scene_chunk, args.seed, start,
-                                      min(args.scan_chunk, args.steps - start), args.batch,
-                                      args.img, args.max_persons, src)
-                   for start in range(0, args.steps, args.scan_chunk)}
-        if out["cv2"]:
-            drive_bisect_and_sweep(tmp, dev, card, out, counts, part, root, tools,
-                                   sweep_extracted)
-        rendered = {(args.seed, start): f.result() for start, f in pending.items()}
-    finally:
-        pool.shutdown(cancel_futures=True)
+    ahead = hard.chunks(args, src, 0, args.steps)
+
+    # (e) sweep_extracted
+    if out["cv2"]:
+        res_e, sec, c = part("sweep_extracted", lambda: sweep_extracted.main(
+            [*UTIL_SWEEP_FLAGS, "--out", os.path.join(tmp, "sweep"), "--device", str(dev)]))
+        aucs = [a for r in res_e for a in r["window_aucs"]]
+        out["sweep_extracted"] = {"results": res_e, "seconds": sec}
+        log(f"[utilities] (e) sweep_extracted {' '.join(UTIL_SWEEP_FLAGS)}: window AUCs "
+            f"{aucs}; {sec:.1f} s; nms launches {c} [{card}]")
+        if len(aucs) != 2 or not all(np.isfinite(a) for a in aucs):
+            fail(f"sweep_extracted gave window AUCs {aucs}")
+    scenes = list(ahead)  # every run below trains on these two chunks
     render_s = time.perf_counter() - t_render
 
     # (a) the hard-scene detector, and resume against an uninterrupted run
-    render = hard.scene_chunk
-
-    def cached_chunk(seed, done, *a):  # every run below trains on the same two chunks
-        return rendered[(seed, done)]
-
     def train_and_evaluate():
         trainer = hard.build_trainer(args, dev)
         t0 = time.perf_counter()
-        losses = hard.train(trainer, args, src)
+        losses = hard.train(trainer, args, src, scenes=scenes)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         return trainer, losses, train_s, hard.evaluate(trainer, args, src, dev)
 
-    hard.scene_chunk = cached_chunk
-    try:
-        (trainer, losses, train_s, res), sec, c = part("train_detector_hard", train_and_evaluate)
-        ckpt = os.path.join(tmp, "hard.msgpack")
-        trainer.save(ckpt, use_ema=bool(args.ema))
-        rargs = copy.copy(args)
-        rargs.out = os.path.join(tmp, "resumed.json")
-        hard.train(hard.build_trainer(rargs, dev), rargs, src, stop_at=UTIL_HARD_RESUME_AT)
-        resumed = hard.build_trainer(rargs, dev)
-        r_losses = hard.train(resumed, rargs, src)
-        gap = _state_gap(trainer, resumed)
-        bitwise = gap == 0.0 and losses == r_losses
-        resume = {"bitwise": bitwise, "max_gap": gap, "phase11_repeat_bitwise": repeat_bitwise}
-        if not bitwise:
-            rargs.out = os.path.join(tmp, "again.json")
-            again = hard.build_trainer(rargs, dev)
-            hard.train(again, rargs, src)
-            resume["repeat_max_gap"] = _state_gap(trainer, again)
-    finally:
-        hard.scene_chunk = render
+    (trainer, losses, train_s, res), sec, c = part("train_detector_hard", train_and_evaluate)
+    ckpt = os.path.join(tmp, "hard.msgpack")
+    trainer.save(ckpt, use_ema=bool(args.ema))
+    rargs = copy.copy(args)
+    rargs.out = os.path.join(tmp, "resumed.json")
+    hard.train(hard.build_trainer(rargs, dev), rargs, src, stop_at=UTIL_HARD_RESUME_AT,
+               scenes=scenes)
+    resumed = hard.build_trainer(rargs, dev)
+    r_losses = hard.train(resumed, rargs, src, scenes=scenes)
+    gap = _state_gap(trainer, resumed)
+    bitwise = gap == 0.0 and losses == r_losses
+    resume = {"bitwise": bitwise, "max_gap": gap, "phase11_repeat_bitwise": repeat_bitwise}
+    if not bitwise:
+        rargs.out = os.path.join(tmp, "again.json")
+        again = hard.build_trainer(rargs, dev)
+        hard.train(again, rargs, src, scenes=scenes)
+        resume["repeat_max_gap"] = _state_gap(trainer, again)
+    del scenes, resumed
     summary = {"steps": args.steps, "img": args.img, "batch": args.batch,
                "width_mult": args.width, "ap50": float(res["ap"]),
                "map50_95": float(res["map50_95"]), "num_pred": int(res["num_pred"]),
                "loss_first": losses[0], "loss_last": losses[-1], "render_seconds": render_s,
-               "train_seconds": train_s, "steps_per_s": args.steps / train_s, "seconds": sec,
-               "resume": resume}
+               "render_workers": hard.render_workers(2), "train_seconds": train_s,
+               "steps_per_s": args.steps / train_s, "seconds": sec, "resume": resume}
     out["train_detector_hard"] = summary
     log(f"[utilities] (a) train_detector_hard {' '.join(UTIL_HARD_FLAGS)} (width {args.width}, "
-        f"img {args.img}, batch {args.batch}): the scenes rendered by {UTIL_RENDER_WORKERS} "
-        f"processes beside (d)-(e), ready after {render_s:.1f} s; loss "
+        f"img {args.img}, batch {args.batch}): the scenes rendered by "
+        f"{summary['render_workers']} processes beside (e), ready after {render_s:.1f} s; loss "
         f"{losses[0]:.3f} -> {losses[-1]:.3f}, {args.steps / train_s:.2f} steps/s; AP50 "
         f"{summary['ap50']:.4f}, mAP50-95 {summary['map50_95']:.4f} on {args.eval_size} "
         f"held-out scenes; resumed {UTIL_HARD_RESUME_AT} + {args.steps - UTIL_HARD_RESUME_AT} == "
@@ -4126,6 +4115,13 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
         log("[utilities] no cv2 here: the soak, leak_bisect and sweep_extracted exit naming cv2")
         return out, counts
 
+    # (d) leak_bisect
+    res_d, sec, c = part("leak_bisect", lambda: leak_bisect.main(
+        [*UTIL_BISECT_FLAGS, "--out", os.path.join(tmp, "bisect"), "--device", str(dev)]))
+    out["leak_bisect"] = {"slopes": res_d["slopes"], "seconds": sec}
+    log(f"[utilities] (d) leak_bisect {' '.join(UTIL_BISECT_FLAGS)}: a pass "
+        f"{json.dumps(res_d['slopes'])}; {sec:.1f} s; nms launches {c} [{card}]")
+
     # (c) the soak on the production configuration, at full width
     res_c, sec, c = part("soak_streaming", lambda: soak_streaming.main(
         [*UTIL_SOAK_FLAGS, "--config", os.path.join(root, PROD_CONFIG), "--out",
@@ -4144,40 +4140,6 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     if not v["all_event_sets_match"] or min(r["events"] for r in res_c["series"]) <= 0:
         fail(f"the production soak's steady passes differ from pass 1 or scored nothing: {v}")
     return out, counts
-
-
-def drive_bisect_and_sweep(tmp: str, dev, card: str, out: dict, counts: dict, part,
-                           root: str, tools: str, sweep_extracted) -> None:
-    """Phase 18's parts (d) and (e), into ``out`` and ``counts``."""
-    # (d) leak_bisect, in a process of its own: its RSS, tracemalloc and
-    # gc readings are then the tool's, not this script's 17 phases' heap
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", EXAMPLE_CHILD,
-                        os.path.join(tools, "leak_bisect.py"), *UTIL_BISECT_FLAGS, "--out",
-                        os.path.join(tmp, "bisect")], cwd=root, capture_output=True, text=True,
-                       timeout=600)
-    sec = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail(f"examples_torch/leak_bisect.py exited {r.returncode}: {r.stderr[-3000:]}")
-    lines = r.stdout.splitlines()
-    slopes = json.loads(next(x for x in lines if x.startswith('{"rss_mb_per_pass"')))
-    c = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
-    counts["leak_bisect"] = c
-    if c["nms_fixpoint"] <= 0:
-        fail(f"[utilities] leak_bisect launched nms_fixpoint no time: {c}")
-    out["leak_bisect"] = {"slopes": slopes, "seconds": sec}
-    log(f"[utilities] (d) leak_bisect {' '.join(UTIL_BISECT_FLAGS)} (its own process): a pass "
-        f"{json.dumps(slopes)}; {sec:.1f} s; nms launches {c} [{card}]")
-
-    # (e) sweep_extracted
-    res_e, sec, c = part("sweep_extracted", lambda: sweep_extracted.main(
-        [*UTIL_SWEEP_FLAGS, "--out", os.path.join(tmp, "sweep"), "--device", str(dev)]))
-    aucs = [a for r in res_e for a in r["window_aucs"]]
-    out["sweep_extracted"] = {"results": res_e, "seconds": sec}
-    log(f"[utilities] (e) sweep_extracted {' '.join(UTIL_SWEEP_FLAGS)}: window AUCs {aucs}; "
-        f"{sec:.1f} s; nms launches {c} [{card}]")
-    if len(aucs) != 2 or not all(np.isfinite(a) for a in aucs):
-        fail(f"sweep_extracted gave window AUCs {aucs}")
 
 
 def main() -> None:

@@ -3,8 +3,8 @@ stability over many passes; the counterpart of ``examples/soak_streaming.py``.
 
 Production serving is a long-running process; this drives the full live path
 (``pipeline/streaming.py::stream_videos_concurrent``) pass after pass for
-``--minutes`` of wall clock (and at least ``--min-passes`` passes) and
-records, per pass:
+``--minutes`` of wall clock (and at least 3 passes: a warm-up and two
+steady ones) and records, per pass:
 
   - throughput (fps, videos/hour): steady-state drift or regression;
   - host RSS (the peak, as the reference reads it, and the current VmRSS):
@@ -106,17 +106,17 @@ def vmrss_mb() -> float:
     return -1.0
 
 
-def soak(pipe: StreamingPipeline, paths: Sequence[str], max_streams: int, minutes: float,
-         min_passes: int = 3) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
+def soak(pipe: StreamingPipeline, paths: Sequence[str], max_streams: int, minutes: float
+         ) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
     """Stream ``paths`` pass after pass until ``minutes`` have gone by and at
-    least ``min_passes`` (at least 3: a warm-up and two steady passes) ran.
-    Returns (one row per pass, the verdict)."""
+    least 3 passes (a warm-up and two steady passes) ran. Returns (one row
+    per pass, the verdict)."""
     cuda = pipe.detection.device.type == "cuda"
     series: List[Dict[str, Any]] = []
     ref_sum = None
     deadline = time.time() + minutes * 60
     i = 0
-    while time.time() < deadline or i < max(3, min_passes):
+    while time.time() < deadline or i < 3:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -175,8 +175,6 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--minutes", type=float, default=30.0)
-    ap.add_argument("--min-passes", type=int, default=3,
-                    help="passes to run however short --minutes is (at least 3)")
     ap.add_argument("--videos", type=int, default=32)
     ap.add_argument("--frames", type=int, default=72)
     ap.add_argument("--img", type=int, default=128)
@@ -203,7 +201,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     paths = render_videos(args.out, args.videos, args.frames)
     cfg = soak_config(args)
     pipe = build_pipeline(cfg, device)
-    series, result = soak(pipe, paths, args.max_streams, args.minutes, args.min_passes)
+    series, result = soak(pipe, paths, args.max_streams, args.minutes)
     print(json.dumps(result), flush=True)
     d = cfg["detector"]
     with open(args.artifact, "w") as f:

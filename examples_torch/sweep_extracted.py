@@ -185,27 +185,6 @@ def config_row(name: str, overrides: Dict[str, Any],
             "video_aucs": vid_aucs}
 
 
-def parallel_fits(todo, seeds: int, poselift_dir: str, out: str, device: torch.device,
-                  jobs: int) -> Dict[str, List[Tuple[float, Optional[float]]]]:
-    """Every (config, seed) fit in ``jobs`` processes at once on the one
-    device, each the sequential run's fit with its seed. The processes share
-    this one's host threads (each spinning a full thread pool of its own
-    slows every fit many times over); on the CPU a fit's float32 sums follow
-    its thread count, so its AUC may differ from the sequential run's in
-    the last places."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    threads = max(1, torch.get_num_threads() // jobs)
-    with ProcessPoolExecutor(jobs, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=torch.set_num_threads,
-                             initargs=(threads,)) as pool:
-        futures = {name: [pool.submit(fit_one, name, overrides, seed, poselift_dir, out,
-                                      str(device)) for seed in range(seeds)]
-                   for name, overrides in todo}
-        return {name: [f.result() for f in fs] for name, fs in futures.items()}
-
-
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -218,9 +197,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--configs", nargs="*", default=None,
                     help="subset of config names to run")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "sweep_extracted"))
-    ap.add_argument("--jobs", type=int, default=1,
-                    help="phase B's fits run in this many processes at once on the device "
-                         "(1: one after another, as the reference)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card, raising without one)")
     return ap
@@ -238,11 +214,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     results = []
     todo = [(n, o) for n, o in CONFIGS if not args.configs or n in args.configs]
     t1 = time.time()
-    done = (parallel_fits(todo, args.seeds, poselift_dir, args.out, device, args.jobs)
-            if args.jobs > 1 else {})
     for name, overrides in todo:
-        fits = done.get(name) or [fit_one(name, overrides, seed, poselift_dir, args.out,
-                                          str(device)) for seed in range(args.seeds)]
+        fits = [fit_one(name, overrides, seed, poselift_dir, args.out, str(device))
+                for seed in range(args.seeds)]
         row = config_row(name, overrides, fits)
         results.append(row)
         print(json.dumps({k: row[k] for k in

@@ -9,7 +9,8 @@ keypoint RMS on held-out scenes, and writes them as JSON.
 
 Each chunk of ``--scan-chunk`` steps draws its scenes from
 ``np.random.default_rng([seed, done])``, so a resumed run draws the scenes it
-would have drawn. After every chunk the trainer's state (weights, BatchNorm
+would have drawn; the chunks render in spawned processes ahead of the
+training (one process a chunk, leaving the host two cores). After every chunk the trainer's state (weights, BatchNorm
 statistics, Adam's moments and step count, the EMA and its step) is written
 atomically beside ``--out`` (``<out>.partial.msgpack`` and
 ``<out>.partial.json``); a run that finds them resumes from them, and a
@@ -28,7 +29,7 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -41,8 +42,9 @@ from cvsd_tpu_torch.eval.detection import evaluate_detector  # noqa: E402
 from cvsd_tpu_torch.models.detector import PersonDetector, make_detect_fn  # noqa: E402
 from cvsd_tpu_torch.train.detector_train import DetectorTrainer  # noqa: E402
 from cvsd_tpu_torch.utils import flax_msgpack  # noqa: E402
-from cvsd_tpu_torch.utils.device import resolve_device, torch_dtype  # noqa: E402
+from cvsd_tpu_torch.utils.device import resolve_device  # noqa: E402
 
+DTYPE = torch.bfloat16  # the detector's compute dtype, the reference's
 DEFAULT_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "detector_hard_results.json")
 
@@ -80,11 +82,11 @@ def held_out_scenes(seed: int, eval_size: int, img: int, max_persons: int,
 
 def build_trainer(args: argparse.Namespace, device: torch.device,
                   variables: Optional[Dict[str, Any]] = None) -> DetectorTrainer:
-    """The reference's detector (pose head, ``--dtype`` compute over float32
+    """The reference's detector (pose head, ``DTYPE`` compute over float32
     master weights) and trainer (keypoint weight 0.1; warm-up + cosine over
     ``--steps`` with ``--cosine``; EMA ``--ema``)."""
     model = PersonDetector(img_size=args.img, width_mult=args.width, depth_mult=args.depth,
-                           num_keypoints=17, dtype=torch_dtype(args.dtype))
+                           num_keypoints=17, dtype=DTYPE)
     return DetectorTrainer(model, lr=args.lr, kpt_weight=0.1,
                            total_steps=args.steps if args.cosine else 0,
                            warmup_steps=args.warmup_steps, ema_decay=args.ema,
@@ -155,41 +157,62 @@ def load_partial(out: str, trainer: DetectorTrainer) -> Tuple[int, List[float]]:
     return int(meta["done"]), list(meta["losses"])
 
 
+def render_workers(chunks: int) -> int:
+    """The processes that render the scenes: one a chunk, leaving two of the
+    host's cores to the training process."""
+    return max(1, min(chunks, (os.cpu_count() or 1) - 2))
+
+
 def chunks(args: argparse.Namespace, seq_source: np.ndarray, start: int, end: int
            ) -> Iterator[Tuple[int, Tuple[np.ndarray, ...]]]:
     """(first step, scene chunk) for the chunks from ``start`` to ``end``.
-    Each chunk has its own seed, so with ``--render-workers`` N the next N
-    chunks render in N processes while the device trains: the same bytes,
-    in the same order."""
+    The chunks render in spawned processes from the moment this is called,
+    ``render_workers`` chunks ahead of the one the caller takes; each chunk
+    has its own seed, so they are the same bytes, in the same order, as
+    ``scene_chunk`` gives in this process."""
     starts = list(range(start, end, args.scan_chunk))
+    if not starts:
+        return iter(())
     spec = [(args.seed, s, min(args.scan_chunk, end - s), args.batch, args.img,
              args.max_persons, seq_source) for s in starts]
-    if args.render_workers <= 0:
-        for s, a in zip(starts, spec):
-            yield s, scene_chunk(*a)
-        return
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    with ProcessPoolExecutor(args.render_workers,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        ahead = [pool.submit(scene_chunk, *a) for a in spec[:args.render_workers]]
-        for i, s in enumerate(starts):
-            if i + args.render_workers < len(spec):
-                ahead.append(pool.submit(scene_chunk, *spec[i + args.render_workers]))
-            yield s, ahead[i].result()
-            ahead[i] = None  # the chunk is the caller's now
+    workers = render_workers(len(spec))
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    ahead = [pool.submit(scene_chunk, *a) for a in spec[:workers]]
+
+    def take() -> Iterator[Tuple[int, Tuple[np.ndarray, ...]]]:
+        try:
+            for i, s in enumerate(starts):
+                if i + workers < len(spec):
+                    ahead.append(pool.submit(scene_chunk, *spec[i + workers]))
+                yield s, ahead[i].result()
+                ahead[i] = None  # the chunk is the caller's now
+        finally:
+            pool.shutdown(cancel_futures=True)
+
+    return take()
 
 
 def train(trainer: DetectorTrainer, args: argparse.Namespace, seq_source: np.ndarray,
-          stop_at: Optional[int] = None) -> List[float]:
+          stop_at: Optional[int] = None,
+          scenes: Optional[Iterable[Tuple[int, Tuple[np.ndarray, ...]]]] = None) -> List[float]:
     """Resume where the partial files say, then train chunk by chunk up to
     ``--steps`` (or ``stop_at``), saving the partial files after each chunk.
-    Returns every step's loss."""
+    ``scenes`` holds (first step, chunk) pairs that ``chunks`` gave before,
+    for a caller that trains on them again; without it the chunks render
+    here. Returns every step's loss."""
     done, losses = load_partial(args.out, trainer)
     end = args.steps if stop_at is None else min(stop_at, args.steps)
+    if scenes is None:
+        scenes = chunks(args, seq_source, done, end)
     t0 = time.time()
-    for _start, chunk in chunks(args, seq_source, done, end):
+    for start, chunk in scenes:
+        if start < done:
+            continue
+        if start >= end:
+            break
         res = trainer.train_steps_scan(*chunk)
         losses.extend(res["losses"].tolist())
         done += len(res["losses"])
@@ -234,12 +257,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup-steps", type=int, default=200)
     ap.add_argument("--ema", type=float, default=0.0,
                     help="EMA decay for eval/export params (0 = off)")
-    ap.add_argument("--render-workers", type=int, default=0,
-                    help="processes rendering the next chunks' scenes while the device "
-                         "trains (0: render each chunk in this process, as the reference)")
-    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
-                    help="the detector's compute dtype (the reference's is bfloat16; "
-                         "a CPU runs bfloat16 convolutions slowly)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card, raising without one)")
     return ap

@@ -46,6 +46,16 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _float32_detector():
+    """The hard-scene trainer computes in float32 here, as the JAX detector
+    these tests hold it against (the tool's own is bfloat16)."""
+    prev = hard.DTYPE
+    hard.DTYPE = torch.float32
+    yield
+    hard.DTYPE = prev
+
+
 def _leaves(tree):
     return {jax.tree_util.keystr(k): np.asarray(v, np.float64)
             for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
@@ -108,7 +118,7 @@ def _hard_args(*extra):
     """The hard-scene script's flags at the test size."""
     return hard.parser().parse_args(
         ["--steps", "4", "--img", str(S), "--batch", "2", "--scan-chunk", "2",
-         "--eval-size", "8", "--width", "0.25", "--dtype", "float32", "--device", "cpu",
+         "--eval-size", "8", "--width", "0.25", "--device", "cpu",
          *extra])
 
 
@@ -199,20 +209,23 @@ def _state(trainer):
 
 def test_resume_equals_uninterrupted(tmp_path):
     """2 steps, the partial files, then 2 more steps in a fresh trainer give
-    4 uninterrupted steps' weights, statistics, EMA and losses bit for bit;
-    the finished run leaves no partial file behind."""
+    4 uninterrupted steps' weights, statistics, EMA and losses bit for bit.
+    The uninterrupted run renders its chunks; the interrupted one trains on
+    the same chunks handed over as ``scenes``, from which ``train`` takes
+    those between the resume point and ``stop_at``."""
     cpu = torch.device("cpu")
     src = hard.scene_source()
     a = _hard_args("--cosine", "--ema", "0.9", "--out", str(tmp_path / "a.json"))
     b = _hard_args("--cosine", "--ema", "0.9", "--out", str(tmp_path / "b.json"))
     ta = hard.build_trainer(a, cpu)
     la = hard.train(ta, a, src)
-    hard.train(hard.build_trainer(b, cpu), b, src, stop_at=2)
+    scenes = list(hard.chunks(a, src, 0, a.steps))
+    hard.train(hard.build_trainer(b, cpu), b, src, stop_at=2, scenes=scenes)
     mp, js = hard.partial_paths(b.out)
     with open(js) as f:
         assert json.load(f)["done"] == 2
     tb = hard.build_trainer(b, cpu)
-    lb = hard.train(tb, b, src)
+    lb = hard.train(tb, b, src, scenes=scenes)
     assert len(la) == 4 and np.array_equal(np.float32(la), np.float32(lb))
     sa, sb = _state(ta), _state(tb)
     assert sa[0].keys() == sb[0].keys()

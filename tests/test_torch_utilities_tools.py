@@ -67,20 +67,21 @@ def test_soak_passes_repeat_their_events(tmp_path):
 
 
 def test_render_workers_draw_the_same_chunks():
-    """``--render-workers 2`` renders each chunk in a spawned process from
-    its own seed: the chunks, in order, are the in-process ones byte for
+    """``chunks`` renders each chunk in a spawned process from its own seed:
+    the chunks, in order, are ``scene_chunk``'s in this process byte for
     byte, from a resumed start too."""
-    argv = ["--steps", "5", "--img", "64", "--batch", "2", "--scan-chunk", "2",
-            "--device", "cpu"]
+    args = train_detector_hard.parser().parse_args(
+        ["--steps", "5", "--img", "64", "--batch", "2", "--scan-chunk", "2", "--device", "cpu"])
     src = train_detector_hard.scene_source()
-    par = train_detector_hard.parser().parse_args([*argv, "--render-workers", "2"])
-    seq = train_detector_hard.parser().parse_args(argv)
+    assert train_detector_hard.render_workers(3) in (1, 2, 3)
     for start in (0, 2):
-        got = list(train_detector_hard.chunks(par, src, start, 5))
-        ref = list(train_detector_hard.chunks(seq, src, start, 5))
-        assert [s for s, _ in got] == [s for s, _ in ref] == list(range(start, 5, 2))
-        for (_s, g), (_r, r) in zip(got, ref):
-            assert [x.tobytes() for x in g] == [x.tobytes() for x in r]
+        got = list(train_detector_hard.chunks(args, src, start, 5))
+        assert [s for s, _ in got] == list(range(start, 5, 2))
+        for s, g in got:
+            ref = train_detector_hard.scene_chunk(args.seed, s, min(2, 5 - s), args.batch,
+                                                  args.img, args.max_persons, src)
+            assert [x.tobytes() for x in g] == [x.tobytes() for x in ref]
+    assert list(train_detector_hard.chunks(args, src, 5, 5)) == []
 
 
 def _detector_checkpoint(path):
@@ -96,7 +97,7 @@ def _run_hard(tmp):
     ckpt = os.path.join(tmp, "hard.msgpack")
     summary = train_detector_hard.main(
         ["--steps", "2", "--img", "64", "--batch", "2", "--scan-chunk", "2", "--eval-size", "2",
-         "--width", "0.25", "--dtype", "float32", "--out", out, "--save-checkpoint", ckpt,
+         "--width", "0.25", "--out", out, "--save-checkpoint", ckpt,
          "--device", "cpu"])
     with open(out) as f:
         written = json.load(f)
@@ -144,7 +145,7 @@ def _run_bisect(tmp):
 def _run_sweep(tmp):
     pytest.importorskip("cv2")
     rows = sweep_extracted.main(
-        ["--train-videos", "2", "--test-videos", "2", "--seeds", "1", "--jobs", "2",
+        ["--train-videos", "2", "--test-videos", "2", "--seeds", "1",
          "--steps", "2", "--pose-steps", "2", "--img-size", "64", "--configs", "tok4",
          "--out", tmp, "--device", "cpu"])
     with open(os.path.join(tmp, "sweep_extracted.json")) as f:
