@@ -1243,6 +1243,28 @@ def cli_command(name: str, *args: str) -> list:
     return [sys.executable, "-m", f"cvsd_tpu_torch.cli.{name}", *args]
 
 
+def run_together(cmds: dict, timeout: int) -> dict:
+    """The commands as subprocesses from the repository's root, all started
+    at once: name -> (exit code, stdout, stderr, seconds from the common
+    start to that one's end). Every one still running on the way out is
+    killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    done = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=timeout)
+            done[name] = (p.returncode, so, se, time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return done
+
+
 def drive_clis(tmp: str, fixture_root: str, has_cv2: bool, dev) -> dict:
     """8(b), 9(b): ``python -m cvsd_tpu_torch.cli.preprocess`` on the
     fixture layout (the default configuration; without cv2 it must exit
@@ -1556,7 +1578,6 @@ def drive_train(tmp: str, dev, cpu, nms_mod) -> dict:
         fail(f"a training step limit passes TF32: stage 1 {t1}, stage 2 {t2}")
 
     # -- (d) the CLIs on their default device --------------------------------------
-    root = os.path.dirname(os.path.abspath(__file__))
     if importlib.util.find_spec("yaml") is not None:
         paper_args = ["--config", "configs/paper.yaml"]
     else:
@@ -1580,14 +1601,14 @@ def drive_train(tmp: str, dev, cpu, nms_mod) -> dict:
              "evaluate": os.path.join(tmp, "cli_eval", "metrics.json"),
              "inference": os.path.join(tmp, "cli_inference.json")}
     clis = {}
-    for name, cmd in cmds.items():
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
-        clis[f"{name}_s"] = time.perf_counter() - t0
-        if r.returncode != 0 or not os.path.exists(files[name]):
-            fail(f"cli.{name} exited {r.returncode}: {r.stderr[-2000:]}")
-        with open(files[name]) as f:
-            json.load(f)
+    # cli.train first; cli.evaluate and cli.inference read its checkpoint, side by side
+    for group in (("train",), ("evaluate", "inference")):
+        for name, (rc, _so, se, sec) in run_together({n: cmds[n] for n in group}, 600).items():
+            clis[f"{name}_s"] = sec
+            if rc != 0 or not os.path.exists(files[name]):
+                fail(f"cli.{name} exited {rc}: {se[-2000:]}")
+            with open(files[name]) as f:
+                json.load(f)
     trace = os.path.join(prof, "trace.json")
     if not os.path.exists(trace):
         fail("cli.train --profile wrote no trace.json")
@@ -1597,8 +1618,9 @@ def drive_train(tmp: str, dev, cpu, nms_mod) -> dict:
     out["clis"] = clis
     log(f"[train] cli.train on paper.yaml ({'--config' if paper_args[0] == '--config' else '--set'}, "
         f"512 windows, 1+1 epochs, --profile) {clis['train_s']:.1f} s, trace "
-        f"{clis['trace_bytes']} B; cli.evaluate {clis['evaluate_s']:.1f} s; cli.inference "
-        f"{clis['inference_s']:.1f} s (AUC {clis['inference_auc']:.4f}); each on the card")
+        f"{clis['trace_bytes']} B; cli.evaluate {clis['evaluate_s']:.1f} s and cli.inference "
+        f"{clis['inference_s']:.1f} s side by side (AUC {clis['inference_auc']:.4f}); each on "
+        f"the card")
     return out
 
 
@@ -1948,38 +1970,36 @@ def drive_detector_train(tmp: str, dev, cpu, nms_mod) -> dict:
         fail(f"the pose step's gradient limit {TOL_POSE_GRAD_F32} passes TF32: {pose_gap['tf32']}")
 
     # -- (e) the CLIs on their default device ---------------------------------------
-    root = os.path.dirname(os.path.abspath(__file__))
     has_cv2 = importlib.util.find_spec("cv2") is not None
-    t1 = time.perf_counter()
     img_dir = write_yolo_layout(os.path.join(tmp, "yolo"), CLI_DET_IMAGES, seed=57)
     save = os.path.join(tmp, "cli_detector.msgpack")
     d = det_train_config()["detector"]
-    r = subprocess.run(cli_command("train_detector", "--images", img_dir, "--img", str(d["img_size"]),
-                                   "--width", str(d["width_mult"]), "--depth", str(d["depth_mult"]),
-                                   "--kpts", "17", "--steps", "48", "--eval-every", "24",
-                                   "--save-checkpoint", save),
-                       cwd=root, capture_output=True, text=True, timeout=900)
-    clis = {"train_detector_s": time.perf_counter() - t1, "cv2": has_cv2}
-    if has_cv2:
-        if r.returncode != 0 or not (os.path.exists(save)
-                                     and os.path.exists(save + ".best.msgpack")):
-            fail(f"cli.train_detector exited {r.returncode}: {r.stderr[-2000:]}")
-        summary = json.loads(r.stdout.strip().splitlines()[-1])
-        clis["train_detector"] = summary
-        if not np.isfinite(summary["train_loss_last"]):
-            fail(f"cli.train_detector's summary: {summary}")
-    elif r.returncode == 0 or "cv2" not in r.stderr:
-        fail(f"cli.train_detector without cv2 exited {r.returncode}, expected an error naming cv2")
     sweep_dir = os.path.join(tmp, "sweep")
     sets = ["data.dataset=synthetic", "data.batch_size=16", "data.synthetic.num_train=64",
             "data.synthetic.num_test=32", "training.stage1_epochs=1", "training.stage2_epochs=1"]
-    t1 = time.perf_counter()
-    r = subprocess.run(cli_command("sweep", "--mode", "quick", "--max_configs", "2",
-                                   "--output_dir", sweep_dir, *[a for s in sets for a in ("--set", s)]),
-                       cwd=root, capture_output=True, text=True, timeout=600)
-    clis["sweep_s"] = time.perf_counter() - t1
-    if r.returncode != 0:
-        fail(f"cli.sweep exited {r.returncode}: {r.stderr[-2000:]}")
+    # the two CLIs are independent: side by side
+    ran = run_together({
+        "train_detector": cli_command(
+            "train_detector", "--images", img_dir, "--img", str(d["img_size"]), "--width",
+            str(d["width_mult"]), "--depth", str(d["depth_mult"]), "--kpts", "17", "--steps",
+            "48", "--eval-every", "24", "--save-checkpoint", save),
+        "sweep": cli_command("sweep", "--mode", "quick", "--max_configs", "2", "--output_dir",
+                             sweep_dir, *[a for s in sets for a in ("--set", s)]),
+    }, 900)
+    rc, so, se, sec = ran["train_detector"]
+    clis = {"train_detector_s": sec, "cv2": has_cv2}
+    if has_cv2:
+        if rc != 0 or not (os.path.exists(save) and os.path.exists(save + ".best.msgpack")):
+            fail(f"cli.train_detector exited {rc}: {se[-2000:]}")
+        summary = json.loads(so.strip().splitlines()[-1])
+        clis["train_detector"] = summary
+        if not np.isfinite(summary["train_loss_last"]):
+            fail(f"cli.train_detector's summary: {summary}")
+    elif rc == 0 or "cv2" not in se:
+        fail(f"cli.train_detector without cv2 exited {rc}, expected an error naming cv2")
+    rc, _so, se, clis["sweep_s"] = ran["sweep"]
+    if rc != 0:
+        fail(f"cli.sweep exited {rc}: {se[-2000:]}")
     with open(os.path.join(sweep_dir, "sweep_results.json")) as f:
         statuses = [e["status"] for e in json.load(f)]
     clis["sweep_statuses"] = statuses
@@ -1993,7 +2013,8 @@ def drive_detector_train(tmp: str, dev, cpu, nms_mod) -> dict:
            f"{clis['train_detector'].get('map50_95')}, best and last checkpoints written"
            if has_cv2 else "no cv2, exited naming it")
         + f" in {clis['train_detector_s']:.1f} s; python -m cvsd_tpu_torch.cli.sweep --mode quick "
-        f"--max_configs 2: statuses {statuses} in {clis['sweep_s']:.1f} s; each on the card")
+        f"--max_configs 2 beside it: statuses {statuses} in {clis['sweep_s']:.1f} s; each on "
+        f"the card")
     return out, eval_counts
 
 
@@ -3277,9 +3298,10 @@ EXAMPLE_FLAGS = {
 }
 
 
-def run_example(script: str, flags: list, tmp: str) -> tuple:
-    """One example as a subprocess on the card (launches counted in the
-    child): (results JSON, stage seconds, launches, wall seconds)."""
+def start_example(script: str, flags: list, tmp: str) -> tuple:
+    """Start one example as a subprocess on the card (launches counted in
+    the child), its output to files: (process, results path, output paths,
+    start time)."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, script.split(".")[0])
     args = ["--out", out]
@@ -3287,18 +3309,37 @@ def run_example(script: str, flags: list, tmp: str) -> tuple:
     if "pipeline_a" in script:
         artifact = os.path.join(tmp, "pipeline_a_results.json")
         args += ["--artifact", artifact]
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", EXAMPLE_CHILD,
-                        os.path.join(root, "examples_torch", script), *flags, *args],
-                       cwd=root, capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail(f"examples_torch/{script} exited {r.returncode}: {r.stderr[-3000:]}")
-    lines = r.stdout.splitlines()
-    stages = json.loads(next(x for x in lines if x.startswith("stage_seconds "))[14:])
-    counts = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
-    with open(artifact) as f:
-        return json.load(f), stages, counts, wall
+    logs = (f"{out}.stdout", f"{out}.stderr")
+    with open(logs[0], "w") as so, open(logs[1], "w") as se:
+        proc = subprocess.Popen([sys.executable, "-c", EXAMPLE_CHILD,
+                                 os.path.join(root, "examples_torch", script), *flags, *args],
+                                cwd=root, stdout=so, stderr=se, text=True)
+    return proc, artifact, logs, time.perf_counter()
+
+
+def finish_examples(started: dict, timeout: float = 900) -> dict:
+    """Wait for the started examples, each timed to its own end: script ->
+    (results JSON, stage seconds, launches, wall seconds)."""
+    ends, t0 = {}, time.perf_counter()
+    while len(ends) < len(started):
+        for script, (proc, *_rest) in started.items():
+            if script not in ends and proc.poll() is not None:
+                ends[script] = time.perf_counter()
+        if time.perf_counter() - t0 > timeout:
+            fail(f"an example ran past {timeout} s: {sorted(set(started) - set(ends))}")
+        time.sleep(0.2)
+    done = {}
+    for script, (proc, artifact, logs, start) in started.items():
+        with open(logs[0]) as so, open(logs[1]) as se:
+            stdout, stderr = so.read(), se.read()
+        if proc.returncode != 0:
+            fail(f"examples_torch/{script} exited {proc.returncode}: {stderr[-3000:]}")
+        lines = stdout.splitlines()
+        stages = json.loads(next(x for x in lines if x.startswith("stage_seconds "))[14:])
+        counts = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
+        with open(artifact) as f:
+            done[script] = (json.load(f), stages, counts, ends[script] - start)
+    return done
 
 
 def aucs_of(res: dict) -> dict:
@@ -3319,7 +3360,8 @@ def aucs_of(res: dict) -> dict:
 
 def drive_examples(tmp: str, card: str) -> tuple:
     """15. Both examples_torch chains as subprocesses on the card at
-    EXAMPLE_FLAGS (each 1-2 minutes): each stage's seconds, every AUC of
+    EXAMPLE_FLAGS, the two at once (each 1-2 minutes): each stage's seconds
+    (beside the other example), every AUC of
     the results JSON, frames/s and the nms_fixpoint launches in the child.
     Fails on a non-finite AUC, no scored windows or no launches; no AUC bar
     at this size. Without cv2 each must exit naming cv2."""
@@ -3335,8 +3377,16 @@ def drive_examples(tmp: str, card: str) -> tuple:
                      f"{r.stderr[-500:]}")
         log("[examples] no cv2 here: both examples exit naming cv2")
         return out, counts
+    started = {script: start_example(script, flags, tmp)
+               for script, flags in EXAMPLE_FLAGS.items()}
+    try:
+        finished = finish_examples(started)
+    finally:
+        for proc, *_rest in started.values():
+            if proc.poll() is None:
+                proc.kill()
     for script, flags in EXAMPLE_FLAGS.items():
-        res, stages, c, wall = run_example(script, flags, tmp)
+        res, stages, c, wall = finished[script]
         aucs = aucs_of(res)
         if "synthetic" in script:
             scored = res["streaming"]["max"]["n_events"]
@@ -3455,7 +3505,18 @@ def _same_tree(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
-def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple:
+def start_dryrun() -> tuple:
+    """Start ``python -m cvsd_tpu_torch.parallel.dryrun 4`` (4 gloo processes on
+    the CPU, no card visible), which phase 16 (e) reads: (process, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "cvsd_tpu_torch.parallel.dryrun", "4"],
+                            cwd=root, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str,
+                   dryrun: tuple) -> tuple:
     """16. The parallel layer on the card. (a) A one-rank NCCL group and its
     MeshConfig (cuda:0); NCCL refuses two ranks on one device, so (a2), after
     (d), forms a two-rank gloo group of spawned processes on cuda:0
@@ -3466,8 +3527,9 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
     through StreamingPipeline with the mesh: the unmeshed run's events. (d)
     One full-width DetectorTrainer step and paper.yaml Shopformer steps
     (both stages, augmentation and dropout on) meshed against unmeshed: bit
-    for bit. (e) ``python -m cvsd_tpu_torch.parallel.dryrun 4`` on the CPU
-    as a subprocess. (f) The compile cache: nvcc into a fresh
+    for bit. (e) ``python -m cvsd_tpu_torch.parallel.dryrun 4`` on the CPU,
+    the subprocess ``dryrun`` that ``start_dryrun`` started beside phase 15:
+    its OK line. (f) The compile cache: nvcc into a fresh
     CVSD_COMPILE_CACHE_DIR in one subprocess, then a second one loads the
     library without nvcc (nvcc made to fail there): each one's time from
     its start to its first kernel launch."""
@@ -3643,17 +3705,16 @@ def drive_parallel(tmp: str, dev, nms_mod, dev_frames: list, card: str) -> tuple
         f"nms launches {counts['detect_gloo2']}; gradient and all_sum sums right; "
         f"{out['gloo2']['seconds']:.1f} s with the processes' start [{card}]")
 
-    # -- (e) the dry run on 4 gloo processes of the CPU ------------------------------
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "cvsd_tpu_torch.parallel.dryrun", "4"], cwd=root,
-                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
-                       text=True, timeout=600)
-    line = next((x for x in r.stdout.splitlines() if x.startswith("dryrun_multichip(4)")), "")
-    if r.returncode != 0 or not line.endswith(" OK"):
-        fail(f"python -m cvsd_tpu_torch.parallel.dryrun 4 exited {r.returncode}: "
-             f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    # -- (e) the dry run on 4 gloo processes of the CPU, started beside phase 15 -----
+    proc, t0 = dryrun
+    stdout, stderr = proc.communicate(timeout=600)
+    line = next((x for x in stdout.splitlines() if x.startswith("dryrun_multichip(4)")), "")
+    if proc.returncode != 0 or not line.endswith(" OK"):
+        fail(f"python -m cvsd_tpu_torch.parallel.dryrun 4 exited {proc.returncode}: "
+             f"{stdout[-1000:]} {stderr[-2000:]}")
     out["dryrun"] = {"line": line, "seconds": time.perf_counter() - t0}
-    log(f"[parallel] (e) {line} ({out['dryrun']['seconds']:.1f} s)")
+    log(f"[parallel] (e) {line} ({out['dryrun']['seconds']:.1f} s from its start beside "
+        f"phase 15)")
 
     # -- (f) the compile cache, cold then warm ------------------------------------------
     cache = tempfile.mkdtemp(prefix="cvsd_compile_cache_", dir=tmp)
@@ -3949,18 +4010,19 @@ def drive_native(tmp: str, dev, nms_mod, host_frames: list, card: str) -> tuple:
 # phase 18: the utility tools (examples_torch)
 
 # (a) train_detector_hard at its own width (0.375, img 320, batch 16): two
-# chunks of 50 steps, 16 held-out scenes. The tool renders its chunks in
-# processes of its own (about 45 s) from the call to ``chunks``, so they
-# render while (e) runs; (d) and (c) run with nothing beside them (no chunk
+# chunks of 30 steps, 16 held-out scenes. The tool renders its chunks in
+# processes of its own from the call to ``chunks``, so they render while
+# (e) runs; (d) and (c) run with nothing beside them (no chunk
 # lands in (d)'s tracemalloc readings, and (c)'s fps is read alone)
-UTIL_HARD_FLAGS = ["--steps", "100", "--scan-chunk", "50", "--eval-size", "16"]
-UTIL_HARD_RESUME_AT = 50
+UTIL_HARD_FLAGS = ["--steps", "60", "--scan-chunk", "30", "--eval-size", "16"]
+UTIL_HARD_RESUME_AT = 30
 # (b) eval_int8_accuracy on (a)'s checkpoint
 UTIL_INT8_FLAGS = ["--calib-batches", "2", "--qat-steps", "25", "--qat-batch", "8",
                    "--eval-size", "16"]
-# (c) the soak's pass loop on the production configuration for half a
-# minute (a pass took 5-7 s on an H100: 5-6 passes); (d) leak_bisect
-UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0.5", "--max-streams", "8"]
+# (c) the soak's pass loop on the production configuration for a quarter
+# of a minute (a pass took 5-7 s on an H100: the tool's least, 3 passes);
+# (d) leak_bisect
+UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0.25", "--max-streams", "8"]
 UTIL_BISECT_FLAGS = ["--passes", "3", "--videos", "2", "--frames", "24"]
 # (e) sweep_extracted: a tiny phase A (at 100 detector steps the detector
 # found no one and both AUCs read 0.5), one config x 2 seeds
@@ -3980,9 +4042,9 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     each part's nms_fixpoint launches counted (0 fails). (a)'s training
     scenes render in the tool's own processes while (e) runs: (e)
     sweep_extracted with a tiny phase A and tok4 x 2 seeds: finite AUCs; (a)
-    train_detector_hard at its own width for 100 steps in 2 chunks, AP50
-    and mAP50-95 on 16 held-out scenes, then 50 steps, the partial files
-    and 50 more in a fresh trainer on the same chunks against the 100
+    train_detector_hard at its own width for 60 steps in 2 chunks, AP50
+    and mAP50-95 on 16 held-out scenes, then 30 steps, the partial files
+    and 30 more in a fresh trainer on the same chunks against the 60
     uninterrupted steps: bit-equal where phase 11's detector step repeats
     bit for bit (``repeat_bitwise``), else the resumed run's gap printed
     beside a second uninterrupted run's; (b) eval_int8_accuracy on (a)'s
@@ -3990,7 +4052,7 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     and QAT AP50 and the int8 GEMM (``torch._int_mm``) calls, which must be
     more than 0; (d) leak_bisect for 3 passes; (c) the soak's pass loop on
     configs/streaming_production.yaml (full width) over 8 rendered 96-frame
-    videos for half a minute: every steady pass's events equal pass 1's;
+    videos for a quarter of a minute: every steady pass's events equal pass 1's;
     the fps drift, the RSS and device-memory growth a pass. Without cv2
     (c)-(e) must exit naming it."""
     from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm
@@ -4855,25 +4917,30 @@ def main() -> None:
     prod["seconds"] = time.perf_counter() - t14
     log(f"[production] phase 14 in {prod['seconds']:.1f} s")
 
-    # -- 15. the end-to-end examples -----------------------------------------------
-    t15 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="cvsd_examples_")
+    # -- 15. the end-to-end examples, with 16 (e)'s CPU dry run beside them ---------
+    dryrun = start_dryrun()
     try:
-        examples, example_counts = drive_examples(tmp, card)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    examples["seconds"] = time.perf_counter() - t15
-    log(f"[examples] phase 15 in {examples['seconds']:.1f} s")
+        t15 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="cvsd_examples_")
+        try:
+            examples, example_counts = drive_examples(tmp, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        examples["seconds"] = time.perf_counter() - t15
+        log(f"[examples] phase 15 in {examples['seconds']:.1f} s")
 
-    # -- 16. the parallel layer ----------------------------------------------------------
-    t16 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="cvsd_parallel_")
-    try:
-        par, par_counts = drive_parallel(tmp, dev, nms_mod, dev_frames, card)
+        # -- 16. the parallel layer ------------------------------------------------------
+        t16 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="cvsd_parallel_")
+        try:
+            par, par_counts = drive_parallel(tmp, dev, nms_mod, dev_frames, card, dryrun)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        par["seconds"] = time.perf_counter() - t16
+        log(f"[parallel] phase 16 in {par['seconds']:.1f} s")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    par["seconds"] = time.perf_counter() - t16
-    log(f"[parallel] phase 16 in {par['seconds']:.1f} s")
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
 
     # -- 17. the native host runtime -----------------------------------------------------
     t17 = time.perf_counter()

@@ -25,14 +25,21 @@ example's is 0) and changes nothing else: the data, the pose net and the
 later stages stay the example's, so rows of several seeds measure the
 spread that the detector's init alone makes.
 
+Each row carries the md5 of the detector and pose-net files it ran, the
+card's ``nvidia-smi`` name and power limit, and the top-down keypoint error
+on the held-out scenes through the detector's own boxes (the pose the
+Shopformer is fed), beside the detector's AP and recall.
+
 Default device: the CUDA card. Needs cv2, as the example does.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import subprocess
 import sys
 from collections import Counter
 from typing import Any, Dict, List
@@ -48,28 +55,55 @@ import end_to_end_synthetic as example  # noqa: E402
 from cvsd_tpu_torch.data.render import rendered_detection_batch  # noqa: E402
 from cvsd_tpu_torch.eval.detection import evaluate_detector  # noqa: E402
 from cvsd_tpu_torch.models.detector import load_detector_checkpoint, make_detect_fn  # noqa: E402
-from cvsd_tpu_torch.models.pose_topdown import load_pose_topdown_checkpoint  # noqa: E402
+from cvsd_tpu_torch.models.pose_topdown import (  # noqa: E402
+    load_pose_topdown_checkpoint, pose_from_boxes)
 from cvsd_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 HELD_OUT_SCENES = 256
 HELD_OUT_SEED = 4242
 
 
-def detector_readings(path: str, img_size: int, device) -> Dict[str, Any]:
+def md5(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.md5(f.read()).hexdigest()
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the card, or why not."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi: {e}"
+
+
+def detector_readings(path: str, pose_path: str, img_size: int, device) -> Dict[str, Any]:
     """AP50, mAP50-95 and recall of a saved example detector on held-out
     rendered scenes (one person each), at a low threshold for AP and at the
-    example's streaming threshold (conf 0.3, 4 detections) for recall."""
+    example's streaming threshold (conf 0.3, 4 detections) for recall; at
+    the streaming threshold also the top-down pose net's keypoint error on
+    the detector's own boxes (matched detections; ``keypoints``)."""
     model, _variables, _meta = load_detector_checkpoint(path, device)
-    images, boxes, valid, _kpts = rendered_detection_batch(
+    pose_model = load_pose_topdown_checkpoint(pose_path, device).eval()
+    images, boxes, valid, kpts = rendered_detection_batch(
         np.random.default_rng(HELD_OUT_SEED), HELD_OUT_SCENES, img_size)
     out = {}
     for name, conf, max_det in (("ap", 0.01, 32), ("stream", 0.3, 4)):
-        res = evaluate_detector(make_detect_fn(model, conf, 0.45, max_det), images, boxes,
-                                valid, coco_map=True, device=device)
+        detect = make_detect_fn(model, conf, 0.45, max_det)
+
+        def topdown(frames, detect=detect):
+            det = detect(frames)
+            return (*det[:3], pose_from_boxes(pose_model, frames, det[0])[0])
+
+        res = evaluate_detector(topdown, images, boxes, valid, gt_kpts=kpts, coco_map=True,
+                                device=device)
         recall = np.asarray(res["recall"])
         out[name] = {"ap50": float(res["ap"]), "map50_95": float(res["map50_95"]),
                      "recall": float(recall[-1]) if recall.size else 0.0,
-                     "detections": int(res["num_pred"]), "people": int(res["num_gt"])}
+                     "detections": int(res["num_pred"]), "people": int(res["num_gt"]),
+                     "keypoints": res.get("keypoints"),
+                     "pose_map50_95": res.get("pose_map50_95")}
     return out
 
 
@@ -140,6 +174,9 @@ def main(argv=None) -> List[Dict[str, Any]]:
             example.DetectorTrainer = trainer_cls
         per_video = Counter(e.video for e in captured["events"])
         counts = [per_video.get(name, 0) for name in sorted(results["videos"])]
+        weights = args.weights_from or out
+        det_path = os.path.join(weights, "detector.msgpack")
+        pose_path = os.path.join(weights, "pose_topdown.msgpack")
         record = {
             "train_videos": n_videos, "epochs": epochs,
             "window_auc": results["extracted_pose_auc"],
@@ -147,9 +184,10 @@ def main(argv=None) -> List[Dict[str, Any]]:
             "streaming_video_auc": {k: v["video_auc"] for k, v in results["streaming"].items()},
             "event_auc": results["streaming"]["max"]["event_auc"],
             "windows": int(sum(counts)), "windows_per_video": counts,
-            "detector": detector_readings(
-                os.path.join(args.weights_from or out, "detector.msgpack"), 128, device),
+            "detector": detector_readings(det_path, pose_path, 128, device),
             "weights_from": args.weights_from, "det_seed": args.det_seed,
+            "detector_md5": md5(det_path), "pose_md5": md5(pose_path),
+            "card": card_line(),
         }
         rows.append(record)
         print("probe_row " + json.dumps(record), flush=True)
