@@ -1243,26 +1243,36 @@ def cli_command(name: str, *args: str) -> list:
     return [sys.executable, "-m", f"cvsd_tpu_torch.cli.{name}", *args]
 
 
-def run_together(cmds: dict, timeout: int) -> dict:
+def run_together(cmds: dict, timeout: float) -> dict:
     """The commands as subprocesses from the repository's root, all started
     at once: name -> (exit code, stdout, stderr, seconds from the common
-    start to that one's end). Every one still running on the way out is
-    killed."""
+    start to that one's own end). Fails if one runs past ``timeout``; every
+    one still running on the way out is killed."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
              for name, cmd in cmds.items()}
     done = {}
+
+    def wait(name, proc):  # one reader a process: no pipe fills while another is read
+        so, se = proc.communicate()
+        done[name] = (proc.returncode, so, se, time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=wait, args=item, daemon=True) for item in procs.items()]
     try:
-        for name, p in procs.items():
-            so, se = p.communicate(timeout=timeout)
-            done[name] = (p.returncode, so, se, time.perf_counter() - t0)
+        for r in readers:
+            r.start()
+        for r in readers:
+            r.join(max(0.0, timeout - (time.perf_counter() - t0)))
+        late = sorted(set(procs) - set(done))
+        if late:
+            fail(f"{late} ran past {timeout} s")
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
-    return done
+    return dict(done)
 
 
 def drive_clis(tmp: str, fixture_root: str, has_cv2: bool, dev) -> dict:
@@ -3298,10 +3308,9 @@ EXAMPLE_FLAGS = {
 }
 
 
-def start_example(script: str, flags: list, tmp: str) -> tuple:
-    """Start one example as a subprocess on the card (launches counted in
-    the child), its output to files: (process, results path, output paths,
-    start time)."""
+def example_command(script: str, flags: list, tmp: str) -> tuple:
+    """One example as a subprocess on the card (launches counted in the
+    child): (command, results path)."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, script.split(".")[0])
     args = ["--out", out]
@@ -3309,37 +3318,8 @@ def start_example(script: str, flags: list, tmp: str) -> tuple:
     if "pipeline_a" in script:
         artifact = os.path.join(tmp, "pipeline_a_results.json")
         args += ["--artifact", artifact]
-    logs = (f"{out}.stdout", f"{out}.stderr")
-    with open(logs[0], "w") as so, open(logs[1], "w") as se:
-        proc = subprocess.Popen([sys.executable, "-c", EXAMPLE_CHILD,
-                                 os.path.join(root, "examples_torch", script), *flags, *args],
-                                cwd=root, stdout=so, stderr=se, text=True)
-    return proc, artifact, logs, time.perf_counter()
-
-
-def finish_examples(started: dict, timeout: float = 900) -> dict:
-    """Wait for the started examples, each timed to its own end: script ->
-    (results JSON, stage seconds, launches, wall seconds)."""
-    ends, t0 = {}, time.perf_counter()
-    while len(ends) < len(started):
-        for script, (proc, *_rest) in started.items():
-            if script not in ends and proc.poll() is not None:
-                ends[script] = time.perf_counter()
-        if time.perf_counter() - t0 > timeout:
-            fail(f"an example ran past {timeout} s: {sorted(set(started) - set(ends))}")
-        time.sleep(0.2)
-    done = {}
-    for script, (proc, artifact, logs, start) in started.items():
-        with open(logs[0]) as so, open(logs[1]) as se:
-            stdout, stderr = so.read(), se.read()
-        if proc.returncode != 0:
-            fail(f"examples_torch/{script} exited {proc.returncode}: {stderr[-3000:]}")
-        lines = stdout.splitlines()
-        stages = json.loads(next(x for x in lines if x.startswith("stage_seconds "))[14:])
-        counts = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
-        with open(artifact) as f:
-            done[script] = (json.load(f), stages, counts, ends[script] - start)
-    return done
+    return ([sys.executable, "-c", EXAMPLE_CHILD, os.path.join(root, "examples_torch", script),
+             *flags, *args], artifact)
 
 
 def aucs_of(res: dict) -> dict:
@@ -3377,16 +3357,18 @@ def drive_examples(tmp: str, card: str) -> tuple:
                      f"{r.stderr[-500:]}")
         log("[examples] no cv2 here: both examples exit naming cv2")
         return out, counts
-    started = {script: start_example(script, flags, tmp)
-               for script, flags in EXAMPLE_FLAGS.items()}
-    try:
-        finished = finish_examples(started)
-    finally:
-        for proc, *_rest in started.values():
-            if proc.poll() is None:
-                proc.kill()
+    commands = {script: example_command(script, flags, tmp)
+                for script, flags in EXAMPLE_FLAGS.items()}
+    ran = run_together({script: cmd for script, (cmd, _a) in commands.items()}, 900)
     for script, flags in EXAMPLE_FLAGS.items():
-        res, stages, c, wall = finished[script]
+        rc, stdout, stderr, wall = ran[script]
+        if rc != 0:
+            fail(f"examples_torch/{script} exited {rc}: {stderr[-3000:]}")
+        lines = stdout.splitlines()
+        stages = json.loads(next(x for x in lines if x.startswith("stage_seconds "))[14:])
+        c = json.loads(next(x for x in lines if x.startswith("NMS_LAUNCHES "))[13:])
+        with open(commands[script][1]) as f:
+            res = json.load(f)
         aucs = aucs_of(res)
         if "synthetic" in script:
             scored = res["streaming"]["max"]["n_events"]

@@ -136,13 +136,14 @@ def decide(data: Dict[str, Any]) -> Dict[str, Any]:
 
 def followers(rows: List[Dict[str, Any]]) -> Dict[str, float]:
     """Spearman's rho of the window AUC with each detector reading the rows
-    carry, across all rows."""
+    carry, across all rows (None for a reading equal in every row)."""
     auc = [r["window_auc"] for r in rows]
     out = {}
     for key in ("windows", "recall", "map50_95", "kpt_rms_norm"):
         vals = [r.get(key) for r in rows]
         if all(v is not None for v in vals):
-            out[key] = float(stats.spearmanr(auc, vals)[0])
+            # a reading equal in every row follows nothing
+            out[key] = float(stats.spearmanr(auc, vals)[0]) if len(set(vals)) > 1 else None
     return out
 
 
