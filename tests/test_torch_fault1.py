@@ -155,7 +155,7 @@ def test_script_prints_the_verdict_perf_states():
     assert r.returncode == 0, r.stderr
     printed = json.loads(r.stdout.strip().splitlines()[-1])["verdict"]
     with open(os.path.join(ROOT, "PERF.md")) as f:
-        stated = re.findall(r"Verdict \(`fault1_verdict\.py`\): \*\*(\w+)\*\*", f.read())
+        stated = re.findall(r"Verdict \(`fault1_verdict\.py`\):\s+\*\*(\w+)\*\*", f.read())
     assert stated == [printed]
 
 
