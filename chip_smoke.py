@@ -3344,10 +3344,14 @@ def drive_examples(tmp: str, card: str) -> tuple:
     (beside the other example), every AUC of
     the results JSON, frames/s and the nms_fixpoint launches in the child.
     Fails on a non-finite AUC, no scored windows or no launches; no AUC bar
-    at this size. Without cv2 each must exit naming cv2."""
+    at this size. Then fault 1's motion reading (``fault1_motion.py``) on
+    the synthetic chain's extracted test poses: finite. Without cv2 each
+    must exit naming cv2."""
     out, counts = {"cv2": importlib.util.find_spec("cv2") is not None}, {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    if os.path.join(root, "examples_torch") not in sys.path:
+        sys.path.insert(0, os.path.join(root, "examples_torch"))
     if not out["cv2"]:
-        root = os.path.dirname(os.path.abspath(__file__))
         for script in EXAMPLE_FLAGS:
             r = subprocess.run([sys.executable, os.path.join(root, "examples_torch", script),
                                 "--out", os.path.join(tmp, "x")], cwd=root, capture_output=True,
@@ -3393,6 +3397,19 @@ def drive_examples(tmp: str, card: str) -> tuple:
             fail(f"examples_torch/{script} scored no windows")
         if c["nms_fixpoint"] <= 0:
             fail(f"examples_torch/{script} launched nms_fixpoint no time: {c}")
+    # fault 1's motion reading on the synthetic chain's extracted test poses
+    import fault1_motion
+
+    t0 = time.perf_counter()
+    motion = fault1_motion.poselift_reading(
+        os.path.join(tmp, "end_to_end_synthetic", "PoseLift"))
+    out["motion"] = {**motion, "seconds": time.perf_counter() - t0}
+    log(f"[examples] fault 1's motion reading on end_to_end_synthetic's extracted test poses "
+        f"against the replayed truth: {json.dumps(motion)}; {out['motion']['seconds']:.1f} s "
+        f"[{card}]")
+    if not all(motion[k] is not None and np.isfinite(motion[k])
+               for k in fault1_motion.READINGS) or motion["pairs"] <= 0:
+        fail(f"the motion reading is missing or not finite: {motion}")
     return out, counts
 
 
@@ -4001,10 +4018,11 @@ UTIL_HARD_RESUME_AT = 30
 # (b) eval_int8_accuracy on (a)'s checkpoint
 UTIL_INT8_FLAGS = ["--calib-batches", "2", "--qat-steps", "25", "--qat-batch", "8",
                    "--eval-size", "16"]
-# (c) the soak's pass loop on the production configuration for a quarter
-# of a minute (a pass took 5-7 s on an H100: the tool's least, 3 passes);
-# (d) leak_bisect
-UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0.25", "--max-streams", "8"]
+# (c) the soak's pass loop on the production configuration for 4 passes (a
+# pass took 5-7 s on an H100; 3 steady passes give the fps slope an
+# interval); (d) leak_bisect
+UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0", "--min-passes", "4",
+                   "--max-streams", "8"]
 UTIL_BISECT_FLAGS = ["--passes", "3", "--videos", "2", "--frames", "24"]
 # (e) sweep_extracted: a tiny phase A (at 100 detector steps the detector
 # found no one and both AUCs read 0.5), one config x 2 seeds
@@ -4034,8 +4052,8 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     and QAT AP50 and the int8 GEMM (``torch._int_mm``) calls, which must be
     more than 0; (d) leak_bisect for 3 passes; (c) the soak's pass loop on
     configs/streaming_production.yaml (full width) over 8 rendered 96-frame
-    videos for a quarter of a minute: every steady pass's events equal pass 1's;
-    the fps drift, the RSS and device-memory growth a pass. Without cv2
+    videos for 4 passes: every steady pass's events equal pass 1's; the fps
+    drift and slope, the RSS and device-memory growth a pass. Without cv2
     (c)-(e) must exit naming it."""
     from cvsd_tpu_torch.ops.int8_conv import int8_conv_gemm
 
@@ -4176,7 +4194,10 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     log(f"[utilities] (c) soak_streaming on {PROD_CONFIG}, {' '.join(UTIL_SOAK_FLAGS)}: "
         f"{v['passes']} passes, events a pass {[r['events'] for r in res_c['series']]}, every "
         f"steady pass's events == pass 1's: {v['all_event_sets_match']}; fps "
-        f"{[r['fps'] for r in res_c['series']]} (drift {v['fps_drift_pct']} %); RSS "
+        f"{[r['fps'] for r in res_c['series']]} (drift {v['fps_drift_pct']} %; slope "
+        f"{v['fps_slope_pct_per_10min']} % a 10 minutes, 95 % interval "
+        f"{v['fps_slope_ci_pct_per_10min']}, {v['fps_slow_passes']} passes below 0.8 x the "
+        f"median, rule {v['fps_slope_verdict']}); RSS "
         f"{v['vmrss_growth_mb_per_pass']} MB a pass, device memory "
         f"{v['device_allocated_growth_mb_per_pass']} MB a pass (peak "
         f"{v['device_max_allocated_growth_mb_per_pass']}); {sec:.1f} s; nms launches {c} "

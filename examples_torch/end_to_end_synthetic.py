@@ -131,7 +131,6 @@ def render_videos(out: str, n_train: int, n_test: int
     """Normal training videos and held-out videos, half normal and half
     anomalous (the anomaly spans the whole video). Returns (train videos,
     test videos, annotations by name, label by name)."""
-    n_half = n_test // 2
     train_videos = []
     train_ds = SyntheticPoseLiftDataset(n_train, seq_len=T_VID, anomaly_ratio=0.0, seed=20)
     for i in range(n_train):
@@ -139,18 +138,25 @@ def render_videos(out: str, n_train: int, n_test: int
         render_pose_video(p, train_ds.poses[i], seed=200 + i)
         train_videos.append(p)
     test_videos, annotations, truth = [], {}, {}
+    for name, kind, poses, seed in held_out_specs(n_test):
+        p = os.path.join(out, f"{name}.mp4")
+        render_pose_video(p, poses, seed=seed)
+        test_videos.append(p)
+        truth[name] = int(kind == "anomalous")
+        ranges = [(1, T_VID)] if kind == "anomalous" else []
+        annotations[name] = TemporalAnnotation(name, kind, ranges)
+    return train_videos, test_videos, annotations, truth
+
+
+def held_out_specs(n_test: int) -> List[Tuple[str, str, np.ndarray, int]]:
+    """The held-out videos as (name, kind, canonical poses (T_VID, 17, 2),
+    render seed): half normal from ``SyntheticPoseLiftDataset`` seed 30,
+    half anomalous from seed 31, rendered with seeds 300 + i."""
+    n_half = n_test // 2
     norm = SyntheticPoseLiftDataset(n_half, seq_len=T_VID, anomaly_ratio=0.0, seed=30)
     anom = SyntheticPoseLiftDataset(n_half, seq_len=T_VID, anomaly_ratio=1.0, seed=31)
-    for kind, ds in (("normal", norm), ("anomalous", anom)):
-        for i in range(n_half):
-            name = f"test_{kind}_{i}"
-            p = os.path.join(out, f"{name}.mp4")
-            render_pose_video(p, ds.poses[i], seed=300 + i)
-            test_videos.append(p)
-            truth[name] = int(kind == "anomalous")
-            ranges = [(1, T_VID)] if kind == "anomalous" else []
-            annotations[name] = TemporalAnnotation(name, kind, ranges)
-    return train_videos, test_videos, annotations, truth
+    return [(f"test_{kind}_{i}", kind, ds.poses[i], 300 + i)
+            for kind, ds in (("normal", norm), ("anomalous", anom)) for i in range(n_half)]
 
 
 def extract_poses(cfg: Dict[str, Any], detector_state: Dict[str, torch.Tensor],

@@ -24,7 +24,26 @@ The rules, fixed before the rows were read:
   stands is reported as it stands.
 
 It also reads which detector readings follow the AUC across all rows
-(Spearman's rho). Imports numpy and scipy only.
+(Spearman's rho).
+
+The motion rules (rows re-run with ``fault1_motion.py``'s readings under
+``motion``, the re-run's own window AUC under ``rerun``), fixed before
+those rows were read:
+
+- (i) over the port rows, Spearman's rho of each motion reading with the
+  window AUC; the reading with the largest |rho| is *the reading* if
+  |rho| >= 0.7;
+- (ii) if there is one, the reading's HL shift (port - JAX) and its exact
+  interval over the rows of both packages that carry it: "port worse" or
+  "port better" where the interval excludes 0 (worse: on the side that
+  lowers the AUC, by the sign of rho), "no difference" where it lies inside
+  +-0.05 / |b| (b the least-squares slope of the port rows' window AUC on
+  the reading: a shift that would move the AUC by less than 0.05), else
+  "undecided";
+- (iii) if there is none: seeds 14-25 on each side, and the rules above
+  applied once to all rows.
+
+Imports numpy and scipy only.
 
     python examples_torch/fault1_verdict.py [--rows examples_torch/fault1_rows.json]
 
@@ -43,6 +62,11 @@ from scipy import stats
 
 ROWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fault1_rows.json")
 ALPHA = 0.05
+MOTION_READINGS = ("kpt_motion_median", "kpt_motion_track_mean", "box_motion_median",
+                   "box_motion_track_mean", "tracks_per_video", "frame_coverage",
+                   "static_kpt_rms")  # fault1_motion.READINGS
+RHO_FLOOR = 0.7     # rule (i): |rho| a reading must reach
+AUC_BAND = 0.05     # rule (ii): a reading shift worth less window AUC than this is none
 CLOSE_BAND = 0.10   # the interval must lie inside (-0.10, +0.10) to close
 B1_FLOOR = 0.92     # the sweep on the JAX detector must read at least this
 JAX_FILE_TOK4 = 0.9529  # examples/sweep_extracted_results.json, tok4 at 256
@@ -147,6 +171,51 @@ def followers(rows: List[Dict[str, Any]]) -> Dict[str, float]:
     return out
 
 
+def _motion_rows(rows: List[Dict[str, Any]], package: str) -> List[Dict[str, Any]]:
+    return [r for r in rows if r["package"] == package and r.get("motion")]
+
+
+def rule_i(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Rule (i): Spearman's rho of each motion reading with the re-run's
+    window AUC over the port rows, and the reading that follows it, if
+    any reaches RHO_FLOOR."""
+    port = _motion_rows(rows, "port")
+    auc = [r["rerun"]["window_auc"] for r in port]
+    rho = {}
+    for key in MOTION_READINGS:
+        vals = [r["motion"][key] for r in port]
+        rho[key] = (float(stats.spearmanr(auc, vals)[0])
+                    if len(port) > 2 and None not in vals and len(set(vals)) > 1 else None)
+    best = max((k for k in rho if rho[k] is not None), key=lambda k: abs(rho[k]), default=None)
+    reading = best if best is not None and abs(rho[best]) >= RHO_FLOOR else None
+    return {"n_port": len(port), "rho": rho, "best": best, "reading": reading,
+            "next": "(ii)" if reading else "(iii)"}
+
+
+def rule_ii(rows: List[Dict[str, Any]], reading: str, rho: float) -> Dict[str, Any]:
+    """Rule (ii): the reading between the packages, port - JAX."""
+    port, jax = _motion_rows(rows, "port"), _motion_rows(rows, "jax")
+    a = [r["motion"][reading] for r in port]
+    b = [r["motion"][reading] for r in jax]
+    slope = float(np.polyfit(a, [r["rerun"]["window_auc"] for r in port], 1)[0])
+    band = AUC_BAND / abs(slope) if slope else float("inf")
+    out = {"reading": reading, "n_port": len(a), "n_jax": len(b), "auc_slope": slope,
+           "band": band, "port_median": float(np.median(a)) if a else None,
+           "jax_median": float(np.median(b)) if b else None}
+    if len(b) < 2:
+        return {**out, "verdict": "no JAX rows"}
+    hl = hodges_lehmann(a, b)
+    # a higher reading lowers the AUC where rho < 0: the port is worse above
+    worse_above = rho < 0
+    if hl["lo"] > 0 or hl["hi"] < 0:
+        verdict = "port worse" if (hl["lo"] > 0) == worse_above else "port better"
+    elif -band < hl["lo"] and hl["hi"] < band:
+        verdict = "no difference"
+    else:
+        verdict = "undecided"
+    return {**out, "hl": hl, "verdict": verdict}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -156,6 +225,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         data = json.load(f)
     res = decide(data)
     res["spearman_with_window_auc"] = followers(data["rows"])
+    res["rule_i"] = motion = rule_i(data["rows"])
+    if motion["reading"]:
+        res["rule_ii"] = rule_ii(data["rows"], motion["reading"],
+                                 motion["rho"][motion["reading"]])
     hl, w = res["hl"], res["welch"]
     print(f"rows: {res['n_port']} port, {res['n_jax']} JAX (round {res['rounds']})")
     print(f"means: port {res['port_mean']:.4f}, JAX {res['jax_mean']:.4f}")
@@ -167,6 +240,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"B2 (port phase A) {res['b2_tok4']}")
     print(f"Spearman rho with the window AUC: {res['spearman_with_window_auc']}")
     print(f"verdict: {res['verdict']}")
+    if motion["n_port"]:
+        print(f"rule (i), {motion['n_port']} port rows: Spearman rho of each motion reading "
+              f"with the window AUC {json.dumps(motion['rho'])}; the reading: "
+              f"{motion['reading']} (largest |rho|: {motion['best']}); next {motion['next']}")
+    if "rule_ii" in res:
+        r2 = res["rule_ii"]
+        hl2 = r2.get("hl") or {}
+        print(f"rule (ii) on {r2['reading']}: {r2['n_port']} port, {r2['n_jax']} JAX rows; "
+              f"medians {r2['port_median']} / {r2['jax_median']}; HL "
+              f"{hl2.get('shift')} [{hl2.get('lo')}, {hl2.get('hi')}] against the band "
+              f"+-{r2['band']:.4g}: {r2['verdict']}")
     print(json.dumps(res), flush=True)
     return res
 

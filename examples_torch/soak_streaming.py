@@ -15,7 +15,12 @@ steady ones) and records, per pass:
     first steady pass (pass 1): nondeterminism or state bleeding from one
     pass into the next (tracker and window state must reset per video).
 
-Writes a JSON time series and a verdict. The default configuration is the
+Writes a JSON time series and a verdict. Beside the reference's
+first-against-last ``fps_drift_pct`` (one slow pass moves it), the verdict
+fits a line to the steady passes' fps over wall clock: its slope in % of
+the mean per 10 minutes, the slope's 95 % interval, the count of passes
+below 0.8 x the median, and the rule "fault" (interval wholly below -5 %),
+"noise" (it holds 0 or lies inside +-5 %) or "neither". The default configuration is the
 reference's (img 128, width 0.25, float32, pose head, random seeded
 weights); ``--config`` streams a configuration file instead (e.g.
 ``configs/streaming_production.yaml``), whose detector settings it keeps.
@@ -42,7 +47,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from scipy import stats  # noqa: E402
 
 from end_to_end_synthetic import require_cv2  # noqa: E402
 from cvsd_tpu_torch.config import get_default_config, load_config  # noqa: E402
@@ -52,6 +59,9 @@ from cvsd_tpu_torch.eval.evaluate import ShopformerScorer  # noqa: E402
 from cvsd_tpu_torch.models.shopformer import build_shopformer  # noqa: E402
 from cvsd_tpu_torch.pipeline.streaming import StreamingPipeline  # noqa: E402
 from cvsd_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+
+DRIFT_BAND = 5.0  # % of the mean fps per 10 minutes: the fps slope's fault and noise rules
 
 
 def render_videos(out: str, videos: int, frames: int) -> List[str]:
@@ -106,17 +116,17 @@ def vmrss_mb() -> float:
     return -1.0
 
 
-def soak(pipe: StreamingPipeline, paths: Sequence[str], max_streams: int, minutes: float
-         ) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
+def soak(pipe: StreamingPipeline, paths: Sequence[str], max_streams: int, minutes: float,
+         min_passes: int = 3) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
     """Stream ``paths`` pass after pass until ``minutes`` have gone by and at
-    least 3 passes (a warm-up and two steady passes) ran. Returns (one row
-    per pass, the verdict)."""
+    least ``min_passes`` passes (3: a warm-up and two steady passes) ran.
+    Returns (one row per pass, the verdict)."""
     cuda = pipe.detection.device.type == "cuda"
     series: List[Dict[str, Any]] = []
     ref_sum = None
     deadline = time.time() + minutes * 60
     i = 0
-    while time.time() < deadline or i < 3:
+    while time.time() < deadline or i < max(min_passes, 3):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -148,9 +158,45 @@ def _per_pass(first: Optional[float], last: Optional[float], passes: int) -> Opt
     return round((last - first) / passes, 2)
 
 
+def fps_slope(series: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """The least-squares line of the steady passes' fps over wall clock
+    (each pass at its midpoint, from the passes' ``wall_s``), as % of their
+    mean fps per 10 minutes, with its 95 % t interval (passes taken as
+    independent); the count of steady passes below 0.8 x their median; and
+    the drift rule: "fault" where the interval lies wholly below
+    -DRIFT_BAND, "noise" where it holds 0 or lies inside +-DRIFT_BAND,
+    else "neither". None where fewer than 3 steady passes or no time
+    between them."""
+    ends = np.cumsum([r["wall_s"] for r in series])
+    t_min = (ends - np.array([r["wall_s"] for r in series]) / 2)[1:] / 60.0
+    fps = np.array([r["fps"] for r in series[1:]], np.float64)
+    out = {"fps_slow_passes": int((fps < 0.8 * np.median(fps)).sum()),
+           "fps_slope_pct_per_10min": None, "fps_slope_ci_pct_per_10min": None,
+           "fps_slope_verdict": None}
+    n = len(fps)
+    sxx = float(((t_min - t_min.mean()) ** 2).sum())
+    if n < 3 or sxx == 0.0 or fps.mean() == 0.0:
+        return out
+    slope, intercept = np.polyfit(t_min, fps, 1)
+    resid = fps - (slope * t_min + intercept)
+    se = float(np.sqrt((resid ** 2).sum() / (n - 2) / sxx))
+    half = float(stats.t.ppf(0.975, n - 2)) * se
+    scale = 1000.0 / fps.mean()  # fps a minute -> % of the mean per 10 minutes
+    lo, hi = (slope - half) * scale, (slope + half) * scale
+    if hi < -DRIFT_BAND:
+        rule = "fault"
+    elif lo <= 0.0 <= hi or (-DRIFT_BAND < lo and hi < DRIFT_BAND):
+        rule = "noise"
+    else:
+        rule = "neither"
+    return {**out, "fps_slope_pct_per_10min": float(slope * scale),
+            "fps_slope_ci_pct_per_10min": [float(lo), float(hi)], "fps_slope_verdict": rule}
+
+
 def verdict(series: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     """The reference's verdict over the steady passes (all but the first),
-    with the growth a pass of the current RSS and of the device memory."""
+    with the growth a pass of the current RSS and of the device memory, and
+    the fps slope over wall clock (``fps_slope``)."""
     steady = series[1:]
     fps = [r["fps"] for r in steady]
     rss = [r["rss_mb"] for r in steady]
@@ -168,6 +214,7 @@ def verdict(series: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
         "device_max_allocated_growth_mb_per_pass": _per_pass(
             steady[0]["device_max_allocated_mb"], steady[-1]["device_max_allocated_mb"], n),
         "all_event_sets_match": all(r.get("events_match_pass1", True) for r in steady),
+        **fps_slope(series),
     }
 
 
@@ -175,6 +222,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--minutes", type=float, default=30.0)
+    ap.add_argument("--min-passes", type=int, default=3,
+                    help="passes to run at least, whatever --minutes says (3 or more)")
     ap.add_argument("--videos", type=int, default=32)
     ap.add_argument("--frames", type=int, default=72)
     ap.add_argument("--img", type=int, default=128)
@@ -201,7 +250,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     paths = render_videos(args.out, args.videos, args.frames)
     cfg = soak_config(args)
     pipe = build_pipeline(cfg, device)
-    series, result = soak(pipe, paths, args.max_streams, args.minutes)
+    series, result = soak(pipe, paths, args.max_streams, args.minutes, args.min_passes)
     print(json.dumps(result), flush=True)
     d = cfg["detector"]
     with open(args.artifact, "w") as f:

@@ -28,7 +28,8 @@ spread that the detector's init alone makes.
 Each row carries the md5 of the detector and pose-net files it ran, the
 card's ``nvidia-smi`` name and power limit, and the top-down keypoint error
 on the held-out scenes through the detector's own boxes (the pose the
-Shopformer is fed), beside the detector's AP and recall.
+Shopformer is fed), beside the detector's AP and recall, and the motion
+reading of ``fault1_motion.py`` on the row's extracted test poses.
 
 Default device: the CUDA card. Needs cv2, as the example does.
 """
@@ -52,6 +53,7 @@ import numpy as np  # noqa: E402
 import functools  # noqa: E402
 
 import end_to_end_synthetic as example  # noqa: E402
+import fault1_motion  # noqa: E402
 from cvsd_tpu_torch.data.render import rendered_detection_batch  # noqa: E402
 from cvsd_tpu_torch.eval.detection import evaluate_detector  # noqa: E402
 from cvsd_tpu_torch.models.detector import load_detector_checkpoint, make_detect_fn  # noqa: E402
@@ -185,6 +187,7 @@ def main(argv=None) -> List[Dict[str, Any]]:
             "event_auc": results["streaming"]["max"]["event_auc"],
             "windows": int(sum(counts)), "windows_per_video": counts,
             "detector": detector_readings(det_path, pose_path, 128, device),
+            "motion": fault1_motion.poselift_reading(os.path.join(out, "PoseLift")),
             "weights_from": args.weights_from, "det_seed": args.det_seed,
             "detector_md5": md5(det_path), "pose_md5": md5(pose_path),
             "card": card_line(),

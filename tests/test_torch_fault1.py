@@ -1,5 +1,7 @@
 """Fault 1's tools: the verdict script (``examples_torch/fault1_verdict.py``)
-on known rows and on the committed ``fault1_rows.json``, the extracted-pose
+on known rows and on the committed ``fault1_rows.json``, its motion rules
+(i) and (ii), the motion reading (``examples_torch/fault1_motion.py``) on
+hand-built tracks and its replay of the rendered truth, the extracted-pose
 sweep's phase A on a detector the JAX package wrote (the swap that reads
 the port's later stages at 256 videos on a JAX detector), and the fit
 driver's two recipes on one extraction."""
@@ -34,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "examples_torch"))
 
 import fault1_fits  # noqa: E402
+import fault1_motion  # noqa: E402
 import fault1_verdict  # noqa: E402
 import sweep_extracted  # noqa: E402
 
@@ -284,3 +287,138 @@ def test_detector_optimizer_over_the_examples_2000_steps():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(r), rtol=0, atol=1e-5)
     t = np.float32(steps - 1)
     assert (np.float32(1.0) + t) / (np.float32(10.0) + t) < np.float32(0.998)
+
+
+# --- the motion reading (fault1_motion.py) ---------------------------------
+
+T_HAND = 20
+H_HAND = 80.0  # the hand-built truth's box height
+
+
+def _hand_truth():
+    """One person standing still: the same 17 points and a box 80 px high
+    in every frame."""
+    rng = np.random.default_rng(3)
+    kpts = np.repeat(rng.uniform(100, 160, (1, 17, 2)), T_HAND, axis=0)
+    boxes = np.repeat(np.array([[90.0, 80.0, 170.0, 80.0 + H_HAND]]), T_HAND, axis=0)
+    return boxes, kpts
+
+
+def _extracted(boxes, kpts, track_of=lambda f: 1):
+    """A Test split's pickle content: frames from 1, ``[box, (17, 3)]``."""
+    return {f + 1: {track_of(f): [boxes[f], np.concatenate([kpts[f], np.ones((17, 1))], 1)]}
+            for f in range(len(boxes))}
+
+
+@pytest.mark.parametrize("case", ["offset", "jitter", "split"])
+def test_motion_reading_on_hand_built_tracks(case):
+    """A constant offset of boxes and keypoints reads zero motion residual
+    (and the offset as the static error); keypoints jittered by +-d px in x
+    from frame to frame read 2d / h on every pair and d / h static; one
+    person's frames split between two tracks read 2 tracks, full
+    coverage and one pair fewer."""
+    boxes, kpts = _hand_truth()
+    truth = {"v": (boxes, kpts)}
+    if case == "offset":
+        got = fault1_motion.motion_reading(
+            {"v": _extracted(boxes + 7.0, kpts + np.array([3.0, 4.0]))}, truth)
+        for key in ("kpt_motion_median", "kpt_motion_track_mean", "box_motion_median",
+                    "box_motion_track_mean"):
+            assert got[key] == pytest.approx(0.0, abs=1e-12), key
+        assert got["static_kpt_rms"] == pytest.approx(5.0 / H_HAND)
+        assert (got["tracks_per_video"], got["frame_coverage"], got["pairs"]) == (1, 1.0, 19)
+    elif case == "jitter":
+        d = 1.5
+        sign = np.where(np.arange(T_HAND) % 2, 1.0, -1.0)[:, None, None]
+        got = fault1_motion.motion_reading(
+            {"v": _extracted(boxes, kpts + sign * np.array([d, 0.0]))}, truth)
+        assert got["kpt_motion_median"] == pytest.approx(2 * d / H_HAND)
+        assert got["kpt_motion_track_mean"] == pytest.approx(2 * d / H_HAND)
+        assert got["box_motion_median"] == pytest.approx(0.0, abs=1e-12)
+        assert got["static_kpt_rms"] == pytest.approx(d / H_HAND)
+    else:
+        got = fault1_motion.motion_reading(
+            {"v": _extracted(boxes, kpts, track_of=lambda f: 1 if f < 10 else 2)}, truth)
+        assert (got["tracks_per_video"], got["tracks"], got["frame_coverage"]) == (2, 2, 1.0)
+        assert got["pairs"] == 18
+        assert got["kpt_motion_median"] == pytest.approx(0.0, abs=1e-12)
+
+
+def test_replay_is_the_videos_frames():
+    """Replaying a held-out video's seed gives the frames render_pose_video
+    hands its writer before encoding, byte for byte (the writer is a
+    stand-in that keeps them: no cv2 decode), the same again on a second
+    replay and under one render_pose_frame call from the same rng state;
+    its truth is the replay's boxes and points."""
+    import types
+
+    from cvsd_tpu_torch.data import render
+
+    name, _kind, poses, seed = fault1_motion.held_out_specs(4)[2]
+    poses = poses[:3]
+    written = []
+
+    class Writer:
+        def __init__(self, *a):
+            pass
+
+        def write(self, frame):
+            written.append(frame[..., ::-1].copy())  # BGR back to RGB
+
+        def release(self):
+            pass
+
+    fake = types.SimpleNamespace(VideoWriter=Writer, VideoWriter_fourcc=lambda *a: 0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "cv2", fake)
+        render.render_pose_video("unused.mp4", poses, seed=seed)
+    first, again = list(fault1_motion.replay(poses, seed)), list(fault1_motion.replay(poses, seed))
+    direct = render.render_pose_frame(poses[0], fault1_motion.HEIGHT, fault1_motion.WIDTH,
+                                      np.random.default_rng(seed))
+    assert name == "test_anomalous_0" and len(written) == len(first) == 3
+    for (frame, box, pts), (frame2, box2, pts2), video in zip(first, again, written):
+        assert frame.tobytes() == frame2.tobytes() == video.tobytes()
+        assert box.tobytes() == box2.tobytes() and pts.tobytes() == pts2.tobytes()
+    assert first[0][0].tobytes() == direct[0].tobytes()
+    boxes, kpts = fault1_motion.truth_of(poses, seed)
+    assert np.array_equal(boxes, np.stack([b for _f, b, _p in first]))
+    assert np.array_equal(kpts, np.stack([p for _f, _b, p in first]))
+
+
+def _motion_rows(port_readings, jax_readings, aucs, key="kpt_motion_median"):
+    """Rows with the re-run's window AUC and a motion dict: ``key`` takes
+    the given readings, every other reading a seeded draw."""
+    rng = np.random.default_rng(11)
+    rows = []
+    for package, readings in (("port", port_readings), ("jax", jax_readings)):
+        for i, (x, auc) in enumerate(zip(readings, aucs)):
+            motion = {k: float(rng.uniform()) for k in fault1_verdict.MOTION_READINGS}
+            motion[key] = float(x)
+            rows.append({"package": package, "seed": i, "window_auc": auc, "motion": motion,
+                         "rerun": {"window_auc": auc}})
+    return rows
+
+
+def test_rule_i_and_ii_on_known_rows():
+    """Rule (i) picks the reading that follows the AUC (rho -1 here) and
+    reads nothing in seeded noise (next: (iii)); rule (ii) reads a JAX
+    side shifted down as "port worse", up as "port better", a shift well
+    inside the band (0.05 / |slope| = 0.025) as "no difference", and a
+    side spread so wide that its interval holds 0 and passes the band as
+    "undecided"."""
+    port = 0.100 + 0.001 * np.arange(14)
+    aucs = list(0.9 - 2.0 * port)  # slope -2: the band is 0.025
+    r1 = fault1_verdict.rule_i(_motion_rows(port, port, aucs))
+    assert r1["reading"] == "kpt_motion_median" and r1["n_port"] == 14
+    assert r1["rho"]["kpt_motion_median"] == pytest.approx(-1.0) and r1["next"] == "(ii)"
+    noise = fault1_verdict.rule_i(_motion_rows(np.random.default_rng(5).uniform(size=14),
+                                               port, aucs))
+    assert noise["reading"] is None and noise["next"] == "(iii)"
+    assert max(abs(v) for v in noise["rho"].values()) < fault1_verdict.RHO_FLOOR
+    spread = 0.04 + 0.01 * np.arange(14)  # the port's median, ten times its spread
+    for jax_side, want in ((port - 0.05, "port worse"), (port + 0.05, "port better"),
+                           (port + 0.0005, "no difference"), (spread, "undecided")):
+        got = fault1_verdict.rule_ii(_motion_rows(port, jax_side, aucs), "kpt_motion_median",
+                                     -1.0)
+        assert got["band"] == pytest.approx(0.025)
+        assert got["verdict"] == want, got
