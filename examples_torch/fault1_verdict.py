@@ -21,7 +21,8 @@ The rules, fixed before the rows were read:
   ``tok4`` >= 0.92;
 - neither: any other reading. Seeds 10-13 are then added on each side,
   once (rows of ``round`` 2), and the rules applied again; what then
-  stands is reported as it stands.
+  stands is reported as it stands. Rows of ``round`` 3 (seeds 14-25, the
+  motion rules' (iii)) are added the same way, once both sides have them.
 
 It also reads which detector readings follow the AUC across all rows
 (Spearman's rho).
@@ -33,15 +34,12 @@ those rows were read:
 - (i) over the port rows, Spearman's rho of each motion reading with the
   window AUC; the reading with the largest |rho| is *the reading* if
   |rho| >= 0.7;
-- (ii) if there is one, the reading's HL shift (port - JAX) and its exact
-  interval over the rows of both packages that carry it: "port worse" or
-  "port better" where the interval excludes 0 (worse: on the side that
-  lowers the AUC, by the sign of rho), "no difference" where it lies inside
-  +-0.05 / |b| (b the least-squares slope of the port rows' window AUC on
-  the reading: a shift that would move the AUC by less than 0.05), else
-  "undecided";
-- (iii) if there is none: seeds 14-25 on each side, and the rules above
-  applied once to all rows.
+- (ii) if there is one: the reading compared between the packages on
+  JAX seeds 0-13 (PERF.md, PR 16, gives the band);
+- (iii) if there is none: seeds 14-25 on each side (rows of ``round`` 3),
+  and the rules above applied once to all rows.
+
+The port's 14 rows read no reading at |rho| >= 0.7, so (ii) never ran.
 
 Imports numpy and scipy only.
 
@@ -66,7 +64,6 @@ MOTION_READINGS = ("kpt_motion_median", "kpt_motion_track_mean", "box_motion_med
                    "box_motion_track_mean", "tracks_per_video", "frame_coverage",
                    "static_kpt_rms")  # fault1_motion.READINGS
 RHO_FLOOR = 0.7     # rule (i): |rho| a reading must reach
-AUC_BAND = 0.05     # rule (ii): a reading shift worth less window AUC than this is none
 CLOSE_BAND = 0.10   # the interval must lie inside (-0.10, +0.10) to close
 B1_FLOOR = 0.92     # the sweep on the JAX detector must read at least this
 JAX_FILE_TOK4 = 0.9529  # examples/sweep_extracted_results.json, tok4 at 256
@@ -140,16 +137,20 @@ def window_aucs(rows: List[Dict[str, Any]], package: str) -> List[float]:
 
 
 def decide(data: Dict[str, Any]) -> Dict[str, Any]:
-    """Apply the rules to round 1, and once more with round 2 when round 1
-    reads 'neither' and round-2 rows exist on both sides."""
+    """Apply the rules to round 1, and once more with each later round
+    (2: seeds 10-13; 3: seeds 14-25, the motion rules' (iii)) while the
+    rounds before read 'neither' and that round's rows exist on both
+    sides."""
     b1, b2 = sweep_mean(data, "B1_jax_detector"), sweep_mean(data, "B2_port_phase_a")
     rows = [r for r in data["rows"] if r.get("round", 1) == 1]
     rounds = 1
     hl = hodges_lehmann(window_aucs(rows, "port"), window_aucs(rows, "jax"))
     verdict = rule(hl, b1, b2)
-    more = [r for r in data["rows"] if r.get("round", 1) == 2]
-    if verdict == "neither" and {r["package"] for r in more} == {"port", "jax"}:
-        rows, rounds = rows + more, 2
+    for later in (2, 3):
+        more = [r for r in data["rows"] if r.get("round", 1) == later]
+        if verdict != "neither" or {r["package"] for r in more} != {"port", "jax"}:
+            break
+        rows, rounds = rows + more, later
         hl = hodges_lehmann(window_aucs(rows, "port"), window_aucs(rows, "jax"))
         verdict = rule(hl, b1, b2)
     port, jax = window_aucs(rows, "port"), window_aucs(rows, "jax")
@@ -186,34 +187,12 @@ def rule_i(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
         vals = [r["motion"][key] for r in port]
         rho[key] = (float(stats.spearmanr(auc, vals)[0])
                     if len(port) > 2 and None not in vals and len(set(vals)) > 1 else None)
+    ranges = {k: [min(r["motion"][k] for r in port), max(r["motion"][k] for r in port)]
+              for k in MOTION_READINGS} if port else {}
     best = max((k for k in rho if rho[k] is not None), key=lambda k: abs(rho[k]), default=None)
     reading = best if best is not None and abs(rho[best]) >= RHO_FLOOR else None
-    return {"n_port": len(port), "rho": rho, "best": best, "reading": reading,
+    return {"n_port": len(port), "rho": rho, "ranges": ranges, "best": best, "reading": reading,
             "next": "(ii)" if reading else "(iii)"}
-
-
-def rule_ii(rows: List[Dict[str, Any]], reading: str, rho: float) -> Dict[str, Any]:
-    """Rule (ii): the reading between the packages, port - JAX."""
-    port, jax = _motion_rows(rows, "port"), _motion_rows(rows, "jax")
-    a = [r["motion"][reading] for r in port]
-    b = [r["motion"][reading] for r in jax]
-    slope = float(np.polyfit(a, [r["rerun"]["window_auc"] for r in port], 1)[0])
-    band = AUC_BAND / abs(slope) if slope else float("inf")
-    out = {"reading": reading, "n_port": len(a), "n_jax": len(b), "auc_slope": slope,
-           "band": band, "port_median": float(np.median(a)) if a else None,
-           "jax_median": float(np.median(b)) if b else None}
-    if len(b) < 2:
-        return {**out, "verdict": "no JAX rows"}
-    hl = hodges_lehmann(a, b)
-    # a higher reading lowers the AUC where rho < 0: the port is worse above
-    worse_above = rho < 0
-    if hl["lo"] > 0 or hl["hi"] < 0:
-        verdict = "port worse" if (hl["lo"] > 0) == worse_above else "port better"
-    elif -band < hl["lo"] and hl["hi"] < band:
-        verdict = "no difference"
-    else:
-        verdict = "undecided"
-    return {**out, "hl": hl, "verdict": verdict}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -226,9 +205,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     res = decide(data)
     res["spearman_with_window_auc"] = followers(data["rows"])
     res["rule_i"] = motion = rule_i(data["rows"])
-    if motion["reading"]:
-        res["rule_ii"] = rule_ii(data["rows"], motion["reading"],
-                                 motion["rho"][motion["reading"]])
     hl, w = res["hl"], res["welch"]
     print(f"rows: {res['n_port']} port, {res['n_jax']} JAX (round {res['rounds']})")
     print(f"means: port {res['port_mean']:.4f}, JAX {res['jax_mean']:.4f}")
@@ -243,14 +219,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if motion["n_port"]:
         print(f"rule (i), {motion['n_port']} port rows: Spearman rho of each motion reading "
               f"with the window AUC {json.dumps(motion['rho'])}; the reading: "
-              f"{motion['reading']} (largest |rho|: {motion['best']}); next {motion['next']}")
-    if "rule_ii" in res:
-        r2 = res["rule_ii"]
-        hl2 = r2.get("hl") or {}
-        print(f"rule (ii) on {r2['reading']}: {r2['n_port']} port, {r2['n_jax']} JAX rows; "
-              f"medians {r2['port_median']} / {r2['jax_median']}; HL "
-              f"{hl2.get('shift')} [{hl2.get('lo')}, {hl2.get('hi')}] against the band "
-              f"+-{r2['band']:.4g}: {r2['verdict']}")
+              f"{motion['reading']} (largest |rho|: {motion['best']}); next {motion['next']}; "
+              f"their ranges {json.dumps(motion['ranges'])}")
     print(json.dumps(res), flush=True)
     return res
 

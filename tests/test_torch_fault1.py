@@ -1,6 +1,6 @@
 """Fault 1's tools: the verdict script (``examples_torch/fault1_verdict.py``)
-on known rows and on the committed ``fault1_rows.json``, its motion rules
-(i) and (ii), the motion reading (``examples_torch/fault1_motion.py``) on
+on known rows and on the committed ``fault1_rows.json``, its motion rule
+(i), the motion reading (``examples_torch/fault1_motion.py``) on
 hand-built tracks and its replay of the rendered truth, the extracted-pose
 sweep's phase A on a detector the JAX package wrote (the swap that reads
 the port's later stages at 256 videos on a JAX detector), and the fit
@@ -399,26 +399,33 @@ def _motion_rows(port_readings, jax_readings, aucs, key="kpt_motion_median"):
     return rows
 
 
-def test_rule_i_and_ii_on_known_rows():
+def test_rule_i_on_known_rows():
     """Rule (i) picks the reading that follows the AUC (rho -1 here) and
-    reads nothing in seeded noise (next: (iii)); rule (ii) reads a JAX
-    side shifted down as "port worse", up as "port better", a shift well
-    inside the band (0.05 / |slope| = 0.025) as "no difference", and a
-    side spread so wide that its interval holds 0 and passes the band as
-    "undecided"."""
+    reads nothing in seeded noise (next: (iii))."""
     port = 0.100 + 0.001 * np.arange(14)
-    aucs = list(0.9 - 2.0 * port)  # slope -2: the band is 0.025
+    aucs = list(0.9 - 2.0 * port)
     r1 = fault1_verdict.rule_i(_motion_rows(port, port, aucs))
     assert r1["reading"] == "kpt_motion_median" and r1["n_port"] == 14
     assert r1["rho"]["kpt_motion_median"] == pytest.approx(-1.0) and r1["next"] == "(ii)"
+    assert r1["ranges"]["kpt_motion_median"] == [port[0], port[-1]]
     noise = fault1_verdict.rule_i(_motion_rows(np.random.default_rng(5).uniform(size=14),
                                                port, aucs))
     assert noise["reading"] is None and noise["next"] == "(iii)"
     assert max(abs(v) for v in noise["rho"].values()) < fault1_verdict.RHO_FLOOR
-    spread = 0.04 + 0.01 * np.arange(14)  # the port's median, ten times its spread
-    for jax_side, want in ((port - 0.05, "port worse"), (port + 0.05, "port better"),
-                           (port + 0.0005, "no difference"), (spread, "undecided")):
-        got = fault1_verdict.rule_ii(_motion_rows(port, jax_side, aucs), "kpt_motion_median",
-                                     -1.0)
-        assert got["band"] == pytest.approx(0.025)
-        assert got["verdict"] == want, got
+
+
+def test_round_three_waits_for_both_sides():
+    """Rows of round 3 (the motion rules' (iii)) join the verdict only once
+    both packages have them: the JAX side alone leaves the committed
+    verdict as it is; both sides, the port's 12 new rows at 0.6 against
+    JAX's at 0.9, make it "confirmed" on 26 rows a side."""
+    data = _committed()
+    before = fault1_verdict.decide(data)
+    jax_only = [{"package": "jax", "seed": s, "round": 3, "window_auc": 0.9} for s in range(14, 26)]
+    data["rows"] += jax_only
+    assert fault1_verdict.decide(data) == before
+    data["rows"] += [{"package": "port", "seed": s, "round": 3, "window_auc": 0.6}
+                     for s in range(14, 26)]
+    got = fault1_verdict.decide(data)
+    assert (got["rounds"], got["n_port"], got["n_jax"], got["verdict"]) == (3, 26, 26,
+                                                                            "confirmed")
