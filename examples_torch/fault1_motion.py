@@ -102,15 +102,13 @@ def motion_reading(extracted: Dict[str, dict], truth: Dict[str, Truth]) -> Dict[
         height = true_boxes[:, 3] - true_boxes[:, 1]
         tracks: Dict[int, Dict[int, Tuple[np.ndarray, np.ndarray]]] = {}
         for frame, people in frames.items():
+            t = int(frame) - 1
             for track, (box, kpts) in people.items():
-                t = int(frame) - 1
-                tracks.setdefault(int(track), {})[t] = (np.asarray(box, np.float64),
-                                                         np.asarray(kpts, np.float64)[:, :2])
-                static.append(np.linalg.norm(tracks[int(track)][t][1] - true_kpts[t], axis=-1)
-                              / height[t])
+                xy = np.asarray(kpts, np.float64)[:, :2]
+                tracks.setdefault(int(track), {})[t] = (np.asarray(box, np.float64), xy)
+                static.append(np.linalg.norm(xy - true_kpts[t], axis=-1) / height[t])
         tracks_per_video.append(len(tracks))
-        coverage.append(len({int(f) for f, people in frames.items() if people})
-                        / len(true_boxes))
+        coverage.append(len(frames) / len(true_boxes))  # a frame is kept only with a track
         for seen in tracks.values():
             k_res, b_res = [], []
             for t in sorted(seen):

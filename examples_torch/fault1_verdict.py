@@ -172,15 +172,11 @@ def followers(rows: List[Dict[str, Any]]) -> Dict[str, float]:
     return out
 
 
-def _motion_rows(rows: List[Dict[str, Any]], package: str) -> List[Dict[str, Any]]:
-    return [r for r in rows if r["package"] == package and r.get("motion")]
-
-
 def rule_i(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Rule (i): Spearman's rho of each motion reading with the re-run's
-    window AUC over the port rows, and the reading that follows it, if
-    any reaches RHO_FLOOR."""
-    port = _motion_rows(rows, "port")
+    window AUC over the port rows that ran again with it, and the reading
+    that follows it, if any reaches RHO_FLOOR."""
+    port = [r for r in rows if r["package"] == "port" and "rerun" in r]
     auc = [r["rerun"]["window_auc"] for r in port]
     rho = {}
     for key in MOTION_READINGS:
