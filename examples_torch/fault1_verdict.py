@@ -22,7 +22,8 @@ The rules, fixed before the rows were read:
 - neither: any other reading. Seeds 10-13 are then added on each side,
   once (rows of ``round`` 2), and the rules applied again; what then
   stands is reported as it stands. Rows of ``round`` 3 (seeds 14-25, the
-  motion rules' (iii)) are added the same way, once both sides have them.
+  motion rules' (iii)) are added the same way, once both sides have
+  them for the same seeds.
 
 It also reads which detector readings follow the AUC across all rows
 (Spearman's rho).
@@ -139,8 +140,8 @@ def window_aucs(rows: List[Dict[str, Any]], package: str) -> List[float]:
 def decide(data: Dict[str, Any]) -> Dict[str, Any]:
     """Apply the rules to round 1, and once more with each later round
     (2: seeds 10-13; 3: seeds 14-25, the motion rules' (iii)) while the
-    rounds before read 'neither' and that round's rows exist on both
-    sides."""
+    rounds before read 'neither' and both sides hold that round's rows for
+    the same seeds."""
     b1, b2 = sweep_mean(data, "B1_jax_detector"), sweep_mean(data, "B2_port_phase_a")
     rows = [r for r in data["rows"] if r.get("round", 1) == 1]
     rounds = 1
@@ -148,7 +149,8 @@ def decide(data: Dict[str, Any]) -> Dict[str, Any]:
     verdict = rule(hl, b1, b2)
     for later in (2, 3):
         more = [r for r in data["rows"] if r.get("round", 1) == later]
-        if verdict != "neither" or {r["package"] for r in more} != {"port", "jax"}:
+        seeds = [{r["seed"] for r in more if r["package"] == p} for p in ("port", "jax")]
+        if verdict != "neither" or not seeds[0] or seeds[0] != seeds[1]:
             break
         rows, rounds = rows + more, later
         hl = hodges_lehmann(window_aucs(rows, "port"), window_aucs(rows, "jax"))

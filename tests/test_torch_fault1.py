@@ -416,16 +416,20 @@ def test_rule_i_on_known_rows():
 
 def test_round_three_waits_for_both_sides():
     """Rows of round 3 (the motion rules' (iii)) join the verdict only once
-    both packages have them: the JAX side alone leaves the committed
-    verdict as it is; both sides, the port's 12 new rows at 0.6 against
+    both packages have them for the same seeds: the JAX side alone, or
+    port seeds 14-25 beside JAX seeds 14-19, leaves the committed verdict
+    as it is; both sides at 14-25, the port's new rows at 0.6 against
     JAX's at 0.9, make it "confirmed" on 26 rows a side."""
     data = _committed()
     before = fault1_verdict.decide(data)
-    jax_only = [{"package": "jax", "seed": s, "round": 3, "window_auc": 0.9} for s in range(14, 26)]
-    data["rows"] += jax_only
+    data["rows"] += [{"package": "jax", "seed": s, "round": 3, "window_auc": 0.9}
+                     for s in range(14, 20)]
     assert fault1_verdict.decide(data) == before
     data["rows"] += [{"package": "port", "seed": s, "round": 3, "window_auc": 0.6}
                      for s in range(14, 26)]
+    assert fault1_verdict.decide(data) == before
+    data["rows"] += [{"package": "jax", "seed": s, "round": 3, "window_auc": 0.9}
+                     for s in range(20, 26)]
     got = fault1_verdict.decide(data)
     assert (got["rounds"], got["n_port"], got["n_jax"], got["verdict"]) == (3, 26, 26,
                                                                             "confirmed")
