@@ -193,6 +193,17 @@ def rule_i(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
             "next": "(ii)" if reading else "(iii)"}
 
 
+def motion_medians(rows: List[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+    """Each package's median of each motion reading over its rows that
+    carry one (a description beside the rules, which read the port rows)."""
+    out = {}
+    for package in ("port", "jax"):
+        have = [r["motion"] for r in rows if r["package"] == package and "motion" in r]
+        out[package] = {"rows": len(have), **{k: float(np.median([m[k] for m in have]))
+                                              for k in MOTION_READINGS if have}}
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -201,8 +212,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     with open(args.rows) as f:
         data = json.load(f)
     res = decide(data)
-    res["spearman_with_window_auc"] = followers(data["rows"])
+    res["spearman_with_window_auc"] = followers(
+        [r for r in data["rows"] if r.get("round", 1) <= res["rounds"]])
     res["rule_i"] = motion = rule_i(data["rows"])
+    res["motion_medians"] = motion_medians(data["rows"])
     hl, w = res["hl"], res["welch"]
     print(f"rows: {res['n_port']} port, {res['n_jax']} JAX (round {res['rounds']})")
     print(f"means: port {res['port_mean']:.4f}, JAX {res['jax_mean']:.4f}")
@@ -219,6 +232,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
               f"with the window AUC {json.dumps(motion['rho'])}; the reading: "
               f"{motion['reading']} (largest |rho|: {motion['best']}); next {motion['next']}; "
               f"their ranges {json.dumps(motion['ranges'])}")
+        print(f"motion medians by package: {json.dumps(res['motion_medians'])}")
     print(json.dumps(res), flush=True)
     return res
 

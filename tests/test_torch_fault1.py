@@ -416,11 +416,13 @@ def test_rule_i_on_known_rows():
 
 def test_round_three_waits_for_both_sides():
     """Rows of round 3 (the motion rules' (iii)) join the verdict only once
-    both packages have them for the same seeds: the JAX side alone, or
+    both packages have them for the same seeds (the committed rows less
+    their round 3, then made-up ones): the JAX side alone, or
     port seeds 14-25 beside JAX seeds 14-19, leaves the committed verdict
     as it is; both sides at 14-25, the port's new rows at 0.6 against
     JAX's at 0.9, make it "confirmed" on 26 rows a side."""
     data = _committed()
+    data["rows"] = [r for r in data["rows"] if r.get("round", 1) < 3]
     before = fault1_verdict.decide(data)
     data["rows"] += [{"package": "jax", "seed": s, "round": 3, "window_auc": 0.9}
                      for s in range(14, 20)]
@@ -433,3 +435,22 @@ def test_round_three_waits_for_both_sides():
     got = fault1_verdict.decide(data)
     assert (got["rounds"], got["n_port"], got["n_jax"], got["verdict"]) == (3, 26, 26,
                                                                             "confirmed")
+
+
+def test_committed_motion_rows():
+    """The committed rows after the motion reading: the 14 port rows ran
+    again with their committed md5s and window AUCs to the last bit, six
+    JAX rows did too, and JAX seeds 14-19 wait in round 3 with one pose
+    net; each package's medians are taken over the rows with a reading."""
+    data = _committed()
+    port = [r for r in data["rows"] if r["package"] == "port"]
+    assert len(port) == 14 and all(r["rerun"]["md5_match"] for r in port)
+    assert all(r["rerun"]["window_auc"] == r["window_auc"] for r in port)
+    reruns = [r for r in data["rows"] if r["package"] == "jax" and "rerun" in r]
+    assert all(r["rerun"]["md5_match"] and r["rerun"]["window_auc"] == r["window_auc"]
+               for r in reruns)
+    third = sorted(r["seed"] for r in data["rows"] if r.get("round") == 3)
+    assert third == list(range(14, 20))
+    medians = fault1_verdict.motion_medians(data["rows"])
+    assert (medians["port"]["rows"], medians["jax"]["rows"]) == (14, len(reruns) + 6)
+    assert fault1_verdict.rule_i(data["rows"])["reading"] is None
