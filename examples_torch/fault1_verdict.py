@@ -36,7 +36,7 @@ those rows were read:
   window AUC; the reading with the largest |rho| is *the reading* if
   |rho| >= 0.7;
 - (ii) if there is one: the reading compared between the packages on
-  JAX seeds 0-13 (PERF.md, PR 16, gives the band);
+  JAX seeds 0-13 (PERF.md gives the band);
 - (iii) if there is none: seeds 14-25 on each side (rows of ``round`` 3),
   and the rules above applied once to all rows.
 
