@@ -147,8 +147,9 @@ def test_committed_rows_one_pose_net():
 
 def test_script_prints_the_verdict_perf_states():
     """``python examples_torch/fault1_verdict.py`` on the committed rows
-    prints the verdict that PERF.md's PR 15 entry states, in a process that
-    loads neither jax nor the JAX package."""
+    prints the verdict that PERF.md states (its one "Verdict" line, in the
+    newest entry on fault 1), in a process that loads neither jax nor the
+    JAX package."""
     code = ("import runpy, sys; sys.argv = [sys.argv[1]]; runpy.run_path(sys.argv[0], "
             "run_name='__main__'); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'cvsd_tpu', 'flax')]; "
@@ -438,19 +439,80 @@ def test_round_three_waits_for_both_sides():
 
 
 def test_committed_motion_rows():
-    """The committed rows after the motion reading: the 14 port rows ran
-    again with their committed md5s and window AUCs to the last bit, six
-    JAX rows did too, and JAX seeds 14-19 wait in round 3 with one pose
-    net; each package's medians are taken over the rows with a reading."""
+    """The committed rows after the motion reading: the 14 port rows of
+    rounds 1-2 ran again with their committed md5s and window AUCs to the
+    last bit, six JAX rows did too, and round 3 holds seeds 14-25 on each
+    side; each package's medians are taken over the rows with a reading."""
     data = _committed()
-    port = [r for r in data["rows"] if r["package"] == "port"]
+    port = [r for r in data["rows"] if r["package"] == "port" and r.get("round", 1) < 3]
     assert len(port) == 14 and all(r["rerun"]["md5_match"] for r in port)
     assert all(r["rerun"]["window_auc"] == r["window_auc"] for r in port)
     reruns = [r for r in data["rows"] if r["package"] == "jax" and "rerun" in r]
     assert all(r["rerun"]["md5_match"] and r["rerun"]["window_auc"] == r["window_auc"]
                for r in reruns)
-    third = sorted(r["seed"] for r in data["rows"] if r.get("round") == 3)
-    assert third == list(range(14, 20))
+    for package in ("port", "jax"):
+        third = sorted(r["seed"] for r in data["rows"]
+                       if r.get("round") == 3 and r["package"] == package)
+        assert third == list(range(14, 26))
     medians = fault1_verdict.motion_medians(data["rows"])
-    assert (medians["port"]["rows"], medians["jax"]["rows"]) == (14, len(reruns) + 6)
+    assert (medians["port"]["rows"], medians["jax"]["rows"]) == (14 + 12, len(reruns) + 12)
     assert fault1_verdict.rule_i(data["rows"])["reading"] is None
+
+
+POSE_MD5 = "78ad52dec9424cc92ec06d4501780c30"  # the example's pose net trained on the card
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_round_three_holds_seeds_0_to_25_once(package):
+    """Each package holds detector init seeds 0-25 exactly once, every row
+    at 64 training videos / 60 Shopformer epochs."""
+    rows = [r for r in _committed()["rows"] if r["package"] == package]
+    assert sorted(r["seed"] for r in rows) == list(range(26))
+    assert all((r["train_videos"], r["epochs"]) == (64, 60) for r in rows)
+
+
+def test_verdict_rows_carry_the_pose_net():
+    """Every row the verdict reads (all three rounds, 26 a side) ran with
+    the one pose net and carries its detector's md5, its chip call and the
+    card's name and power limit."""
+    data = _committed()
+    res = fault1_verdict.decide(data)
+    used = [r for r in data["rows"] if r.get("round", 1) <= res["rounds"]]
+    assert (res["rounds"], res["n_port"], res["n_jax"], len(used)) == (3, 26, 26, 52)
+    assert {r["pose_md5"] for r in used} == {POSE_MD5}
+    assert len({(r["package"], r["detector_md5"]) for r in used}) == 52
+    assert all(isinstance(r["call"], int) and r["card"].startswith("NVIDIA H100") for r in used)
+
+
+def test_round_three_reading_is_perf_md():
+    """``decide`` on the committed rows gives the verdict, the HL shift and
+    its interval that PERF.md's round-3 line states (four decimals)."""
+    res = fault1_verdict.decide(_committed())
+    with open(os.path.join(ROOT, "PERF.md")) as f:
+        text = f.read().replace("\u2212", "-")
+    stated = re.findall(r"Round 3, 26 a side:\s+\*\*(\w+)\*\*,\s+HL\s+([-+]\d\.\d{4})\s+"
+                        r"\[([-+]\d\.\d{4}),\s+([-+]\d\.\d{4})\]", text)
+    hl = res["hl"]
+    assert stated == [(res["verdict"], f"{hl['shift']:+.4f}", f"{hl['lo']:+.4f}",
+                       f"{hl['hi']:+.4f}")]
+
+
+def test_predict_script_on_the_committed_rows():
+    """``fault1_predict.py`` with no rows to draw reads the committed rows'
+    own HL interval in every draw; with rows to draw, the verdict shares
+    sum to 1 and the interval's order statistic is the exact one at the
+    full count."""
+    import fault1_predict
+
+    data = _committed()
+    n_port = sum(r["package"] == "port" for r in data["rows"])
+    n_jax = sum(r["package"] == "jax" for r in data["rows"])
+    hl = fault1_verdict.hodges_lehmann(fault1_verdict.window_aucs(data["rows"], "port"),
+                                       fault1_verdict.window_aucs(data["rows"], "jax"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        same = fault1_predict.main(["--round", "3", "--port", "0", "--jax", "0", "--draws", "5"])
+        more = fault1_predict.main(["--round", "4", "--port", "3", "--jax", "2", "--draws", "50"])
+    for key in ("shift", "lo", "hi"):
+        assert same["percentiles_10_50_90"][key] == [hl[key]] * 3
+    assert sum(more["verdicts"].values()) == pytest.approx(1.0)
+    assert more["k"] == fault1_verdict.rank_k(n_port + 3, n_jax + 2)
