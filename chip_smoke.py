@@ -35,10 +35,10 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      bf16) written to msgpack checkpoints through state_dict_to_flax and
      read back bit-equal; (b) ``python -m cvsd_tpu_torch.cli.serve`` on them
      as a subprocess on the card: its warmup, /healthz, 32 concurrent /score
-     clients of 41 requests each (each response equal to load_model's
+     clients of 21 requests each (each response equal to load_model's
      scores in this process) and one JPEG to /detect (200 where cv2 is
      installed, else 501 naming it); (c) an in-process ScoringServer's
-     /detect device half, ``_detect_canvas``, from 8 threads at once, 520
+     /detect device half, ``_detect_canvas``, from 8 threads at once, 264
      canvases (each response equal to a serial call's) with the
      nms_fixpoint kernel's launches counted. Rates and latencies of (b) and
      (c) are read in the steady window only (see ``steady_state``)
@@ -58,7 +58,7 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
      subprocesses on their default device (the card)
   10. train: (a) configs/paper.yaml's model and training (d_model 144,
      batch 32 x accum 4, Adam 5e-5, exponential, clip 1.0, scan_epoch, its
-     augmentation) on 8,192 synthetic windows, 3 + 3 epochs: steps/s, epoch
+     augmentation) on 4,096 synthetic windows, 2 + 2 epochs: steps/s, epoch
      seconds, scoring windows/s, peak memory; the stage-1 loss falls, the
      four stage checkpoints exist and load_model(stage2_best) scores the
      test set bit-equal to the trainer; (b) the JAX package's learning
@@ -154,7 +154,7 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
   18. the utility tools of examples_torch (drive_utilities), each part's
      nms_fixpoint launches counted: sweep_extracted at a tiny phase A
      (finite AUCs) while the hard-scene tool renders its chunks in
-     processes of its own; train_detector_hard at its own width (100
+     processes of its own; train_detector_hard at its own width (16
      steps, AP50, mAP50-95) and its resume against an uninterrupted run;
      eval_int8_accuracy on that detector (float, int8 and QAT AP50, the
      torch._int_mm calls); leak_bisect for 3 passes; the soak's pass loop
@@ -624,10 +624,10 @@ anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX
 qaTcR2upxTzNsiUsGbBPYgdK2dX1ayudMmhgn3SMBgbWHQj1FaxUXFt7mUnJSVtjmCxDbecAcgmlBA54xn/9VJnj
 k7uOgpCjZJHQ9eayNQb5sjBUYzz/AJ/zindx8ufoaKKVxIRc444/lSL8x7DPPFFFMb0Vz//Z""")
 SCORE_CLIENTS = 32  # concurrent /score clients, each sending SCORE_ROUNDS requests
-SCORE_ROUNDS = 41
+SCORE_ROUNDS = 21
 SCORE_BODIES = 64  # distinct /score bodies, which the clients take in turn
 DETECT_THREADS = 8  # concurrent _detect_canvas callers, each DETECT_ROUNDS canvases
-DETECT_ROUNDS = 65
+DETECT_ROUNDS = 33
 
 
 def steady_state(records: list) -> dict:
@@ -1348,8 +1348,8 @@ PAPER_SETS = (
     "data.augment.scale_range=[0.95, 1.05]", "data.augment.rotation_range=[-5.0, 5.0]",
     "data.augment.temporal_dropout_prob=0.05", "data.augment.keypoint_dropout_prob=0.0",
 )
-TRAIN_WINDOWS = 8192  # synthetic training windows at the paper's width (test: a quarter)
-TRAIN_EPOCHS = 3  # per stage, for the paper's 200 + 200
+TRAIN_WINDOWS = 4096  # synthetic training windows at the paper's width (test: a quarter)
+TRAIN_EPOCHS = 2  # per stage, for the paper's 200 + 200
 # One stage-1 and one stage-2 step, float32 card vs CPU on one batch from the
 # same weights, each limit ~10x its float32 reading on an H100 (PERF.md gives
 # the readings). The loss (relative) and, after the stage-1 step, the
@@ -1460,7 +1460,7 @@ def train_step_gap(cfg, init: dict, batch: dict, stage: int, dev, cpu, tf32: boo
 
 def drive_train(tmp: str, dev, cpu, nms_mod) -> dict:
     """10: Shopformer training on the card. (a) configs/paper.yaml's model
-    and training at full width on TRAIN_WINDOWS synthetic windows, 3 + 3
+    and training at full width on TRAIN_WINDOWS synthetic windows, 2 + 2
     epochs: micro- and optimizer steps/s per stage, epoch seconds, test-set
     scoring windows/s, peak memory; the stage-1 loss falls, the four stage
     checkpoints exist, load_model(stage2_best) scores the test set bit-equal
@@ -2037,7 +2037,7 @@ def drive_detector_train(tmp: str, dev, cpu, nms_mod) -> dict:
 INT8_CALIB_FRAMES = 256  # cli.quantize_detector's defaults: 256 frames in batches of 16
 INT8_CALIB_BATCH = 16
 INT8_ITERS = 10  # int8 detector batches of phase 3's B=128 frames in the counted run
-INT8_TURN = 5  # batches per turn of the bf16 / int8 comparison (bf16, int8, int8, bf16)
+INT8_TURN = 3  # batches per turn of the bf16 / int8 comparison (bf16, int8, int8, bf16)
 # three full-width ConvBNActs held route vs plain on their real inputs
 INT8_LAYERS = ("Backbone_0.ConvBNAct_0",  # the stem: 6x6 / 2, K = 108 padded to 112
                "Backbone_0.C3_0.Bottleneck_0.ConvBNAct_1",  # a C3 bottleneck's 3x3
@@ -2594,7 +2594,7 @@ IMPORT_ARCH = dict(width_mult=0.75, depth_mult=0.67, img_size=640)  # yolov5mu, 
 SF_WINDOWS = 1024  # windows scored per Shopformer generation
 STREAM13_FRAMES = 40  # the rendered 320x240 video cli.stream reads
 EXPORT_BATCHES = (1, 5, 128)  # the exported detector's batches on phase 3's frames
-EXPORT_ITERS = 5  # timed B=128 batches, exported and eager
+EXPORT_ITERS = 3  # timed B=128 batches, exported and eager
 # The imported reference Shopformers on the card, port against the torch
 # mirror in float32 (both with TF32 off): max |port - mirror| / max |mirror|
 # over the 1024 scores, ~10x each generation's float32 reading (v1 1.85e-07,
@@ -3301,10 +3301,10 @@ finally:
 # detector found no one in the anomalous videos, so its CSV was never
 # written); no AUC bar at this size
 EXAMPLE_FLAGS = {
-    "end_to_end_synthetic.py": ["--steps", "250", "--pose-steps", "300", "--train-videos", "16",
-                                "--test-videos", "16", "--epochs", "10"],
-    "end_to_end_pipeline_a.py": ["--videos-per-class", "8", "--test-per-class", "8",
-                                 "--det-steps", "300", "--epochs", "10"],
+    "end_to_end_synthetic.py": ["--steps", "150", "--pose-steps", "200", "--train-videos", "12",
+                                "--test-videos", "12", "--epochs", "6"],
+    "end_to_end_pipeline_a.py": ["--videos-per-class", "8", "--test-per-class", "6",
+                                 "--frames", "48", "--det-steps", "300", "--epochs", "6"],
 }
 
 
@@ -3416,7 +3416,7 @@ def drive_examples(tmp: str, card: str) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 16: the parallel layer (a one-rank NCCL mesh on the card)
 
-PAR_ITERS = 10  # B=128 detect batches, meshed and unmeshed, of phase 3's frames
+PAR_ITERS = 6  # B=128 detect batches, meshed and unmeshed, of phase 3's frames
 PAR_STREAMS = 4  # in-memory 320x240 streams of PROD_FRAMES frames, production config
 PAR_SF_WINDOWS = 512  # synthetic windows for the paper.yaml Shopformer steps
 PAR_GLOO_ITERS = 4  # meshed B=128 batches of the two gloo ranks on the one card
@@ -4009,25 +4009,28 @@ def drive_native(tmp: str, dev, nms_mod, host_frames: list, card: str) -> tuple:
 # phase 18: the utility tools (examples_torch)
 
 # (a) train_detector_hard at its own width (0.375, img 320, batch 16): two
-# chunks of 30 steps, 16 held-out scenes. The tool renders its chunks in
+# chunks of 8 steps, 16 held-out scenes. The tool renders its chunks in
 # processes of its own from the call to ``chunks``, so they render while
 # (e) runs; (d) and (c) run with nothing beside them (no chunk
 # lands in (d)'s tracemalloc readings, and (c)'s fps is read alone)
-UTIL_HARD_FLAGS = ["--steps", "60", "--scan-chunk", "30", "--eval-size", "16"]
-UTIL_HARD_RESUME_AT = 30
+UTIL_HARD_FLAGS = ["--steps", "16", "--scan-chunk", "8", "--eval-size", "16"]
+UTIL_HARD_RESUME_AT = 8
 # (b) eval_int8_accuracy on (a)'s checkpoint
-UTIL_INT8_FLAGS = ["--calib-batches", "2", "--qat-steps", "25", "--qat-batch", "8",
+UTIL_QAT_STEPS = 10
+UTIL_INT8_FLAGS = ["--calib-batches", "2", "--qat-steps", str(UTIL_QAT_STEPS), "--qat-batch", "8",
                    "--eval-size", "16"]
 # (c) the soak's pass loop on the production configuration for 4 passes (a
 # pass took 5-7 s on an H100; 3 steady passes give the fps slope an
-# interval); (d) leak_bisect
+# interval; at 64 frames a video no window fills and no event comes out);
+# (d) leak_bisect
 UTIL_SOAK_FLAGS = ["--videos", "8", "--frames", "96", "--minutes", "0", "--min-passes", "4",
                    "--max-streams", "8"]
 UTIL_BISECT_FLAGS = ["--passes", "3", "--videos", "2", "--frames", "24"]
 # (e) sweep_extracted: a tiny phase A (at 100 detector steps the detector
-# found no one and both AUCs read 0.5), one config x 2 seeds
-UTIL_SWEEP_FLAGS = ["--train-videos", "6", "--test-videos", "6", "--seeds", "2",
-                    "--steps", "200", "--pose-steps", "100", "--configs", "tok4"]
+# found no one and both AUCs read 0.5), one config x 1 seed
+UTIL_SWEEP_SEEDS = 1
+UTIL_SWEEP_FLAGS = ["--train-videos", "4", "--test-videos", "4", "--seeds", str(UTIL_SWEEP_SEEDS),
+                    "--steps", "200", "--pose-steps", "50", "--configs", "tok4"]
 
 
 def _state_gap(a, b) -> float:
@@ -4041,14 +4044,14 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     """18. The tools of examples_torch on the card, through their functions,
     each part's nms_fixpoint launches counted (0 fails). (a)'s training
     scenes render in the tool's own processes while (e) runs: (e)
-    sweep_extracted with a tiny phase A and tok4 x 2 seeds: finite AUCs; (a)
-    train_detector_hard at its own width for 60 steps in 2 chunks, AP50
-    and mAP50-95 on 16 held-out scenes, then 30 steps, the partial files
-    and 30 more in a fresh trainer on the same chunks against the 60
+    sweep_extracted with a tiny phase A and tok4 x 1 seed: a finite AUC; (a)
+    train_detector_hard at its own width for 16 steps in 2 chunks, AP50
+    and mAP50-95 on 16 held-out scenes, then 8 steps, the partial files
+    and 8 more in a fresh trainer on the same chunks against the 16
     uninterrupted steps: bit-equal where phase 11's detector step repeats
     bit for bit (``repeat_bitwise``), else the resumed run's gap printed
     beside a second uninterrupted run's; (b) eval_int8_accuracy on (a)'s
-    checkpoint with 2 calibration batches and 25 QAT steps: the float, int8
+    checkpoint with 2 calibration batches and 10 QAT steps: the float, int8
     and QAT AP50 and the int8 GEMM (``torch._int_mm``) calls, which must be
     more than 0; (d) leak_bisect for 3 passes; (c) the soak's pass loop on
     configs/streaming_production.yaml (full width) over 8 rendered 96-frame
@@ -4095,7 +4098,7 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
         out["sweep_extracted"] = {"results": res_e, "seconds": sec}
         log(f"[utilities] (e) sweep_extracted {' '.join(UTIL_SWEEP_FLAGS)}: window AUCs "
             f"{aucs}; {sec:.1f} s; nms launches {c} [{card}]")
-        if len(aucs) != 2 or not all(np.isfinite(a) for a in aucs):
+        if len(aucs) != UTIL_SWEEP_SEEDS or not all(np.isfinite(a) for a in aucs):
             fail(f"sweep_extracted gave window AUCs {aucs}")
     scenes = list(ahead)  # every run below trains on these two chunks
     render_s = time.perf_counter() - t_render
@@ -4161,7 +4164,7 @@ def drive_utilities(tmp: str, dev, nms_mod, card: str, repeat_bitwise) -> tuple:
     out["eval_int8_accuracy"] = {"ap50": aps, "ap50_delta": res_b["ap50_delta"],
                                  "int_mm_calls": gemm, "seconds": sec}
     log(f"[utilities] (b) eval_int8_accuracy {' '.join(UTIL_INT8_FLAGS)}: AP50 float "
-        f"{aps['float']:.4f}, int8 {aps['int8']:.4f}, int8 + 25 QAT steps "
+        f"{aps['float']:.4f}, int8 {aps['int8']:.4f}, int8 + {UTIL_QAT_STEPS} QAT steps "
         f"{aps['int8_qat']:.4f}; {gemm} torch._int_mm calls; {sec:.1f} s; nms launches {c} "
         f"[{card}]")
     if gemm <= 0 or not all(np.isfinite(v) for v in aps.values()):

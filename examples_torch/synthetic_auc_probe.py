@@ -32,13 +32,6 @@ that ``--weights-from`` directories of JAX detectors are read with.
 
     python examples_torch/synthetic_auc_probe.py --out DIR --train-pose-net
 
-``--train-detector`` trains only the example's detector from ``--det-seed``
-on ``--device`` into ``OUT/detector.msgpack`` and exits: the port's trainer
-on the CPU, whose detectors ``--weights-from`` then reads on the card.
-
-    python examples_torch/synthetic_auc_probe.py --out DIR --train-detector \
-        --det-seed 0 --device cpu
-
 Each row carries the md5 of the detector and pose-net files it ran, the
 card's ``nvidia-smi`` name and power limit, and the top-down keypoint error
 on the held-out scenes through the detector's own boxes (the pose the
@@ -175,27 +168,12 @@ def main(argv=None) -> List[Dict[str, Any]]:
                         "and every other stage stay the example's")
     p.add_argument("--train-pose-net", action="store_true",
                    help="train only the example's pose net into OUT and exit")
-    p.add_argument("--train-detector", action="store_true",
-                   help="train only the example's detector (init from --det-seed) into OUT "
-                        "and exit")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     if args.train_pose_net:
         path = train_example_pose_net(args.out, device)
         print("pose_net " + json.dumps({"path": path, "pose_md5": md5(path),
                                         "card": card_line()}), flush=True)
-        return []
-    if args.train_detector:
-        os.makedirs(args.out, exist_ok=True)
-        trainer_cls = example.DetectorTrainer
-        example.DetectorTrainer = functools.partial(trainer_cls, seed=args.det_seed)
-        try:
-            example.train_detector(128, 2000, np.random.default_rng(0), args.out, device)
-        finally:
-            example.DetectorTrainer = trainer_cls
-        path = os.path.join(args.out, "detector.msgpack")
-        print("detector " + json.dumps({"path": path, "det_seed": args.det_seed,
-                                        "detector_md5": md5(path)}), flush=True)
         return []
     rows = []
     for row in args.rows:

@@ -516,3 +516,43 @@ def test_predict_script_on_the_committed_rows():
         assert same["percentiles_10_50_90"][key] == [hl[key]] * 3
     assert sum(more["verdicts"].values()) == pytest.approx(1.0)
     assert more["k"] == fault1_verdict.rank_k(n_port + 3, n_jax + 2)
+
+
+def test_pose_net_alone_draws_the_examples_batches(monkeypatch, tmp_path):
+    """``synthetic_auc_probe.py --train-pose-net`` hands the example's pose
+    trainer the generator in the state the example's own run does, after
+    the detector's 2,000 batches in chunks of 200 (the scene renderer
+    stubbed by a draw of its batch's size, the detector trainer by a
+    stand-in that learns nothing)."""
+    import end_to_end_synthetic as example
+    import synthetic_auc_probe as probe
+
+    def batch(rng, n, img):
+        x = rng.random((n, img // 64))
+        return x, x, x
+
+    class Trainer:
+        def __init__(self, *a, **k):
+            pass
+
+        def train_steps_scan(self, images, *a):
+            return {"losses": np.zeros(len(images))}
+
+        def save(self, *a, **k):
+            pass
+
+    handed = []
+
+    def pose_net(steps, rng, out, device):
+        handed.append((steps, rng.bit_generator.state))
+        return os.path.join(out, "pose_topdown.msgpack")
+
+    for module in (example, probe):
+        monkeypatch.setattr(module, "rendered_detection_batch", batch)
+    monkeypatch.setattr(example, "DetectorTrainer", Trainer)
+    monkeypatch.setattr(example, "train_pose_net", pose_net)
+    probe.train_example_pose_net(str(tmp_path), torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        example.train_detector(128, 2000, rng, str(tmp_path), torch.device("cpu"))
+    assert handed == [(3000, rng.bit_generator.state)]
