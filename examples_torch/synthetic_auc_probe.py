@@ -25,12 +25,9 @@ example's is 0) and changes nothing else: the data, the pose net and the
 later stages stay the example's, so rows of several seeds measure the
 spread that the detector's init alone makes.
 
-``--train-pose-net`` trains only the example's pose net, as the example
-does (its 2,000 detector batches drawn from the example's generator first),
-into ``OUT/pose_topdown.msgpack``, prints its md5 and exits: the pose net
-that ``--weights-from`` directories of JAX detectors are read with.
-
-    python examples_torch/synthetic_auc_probe.py --out DIR --train-pose-net
+A ``--weights-from`` directory of a JAX detector takes the example's pose
+net from a port row run on the same card: each row writes it to
+``OUT/train64_ep60/pose_topdown.msgpack``.
 
 Each row carries the md5 of the detector and pose-net files it ran, the
 card's ``nvidia-smi`` name and power limit, and the top-down keypoint error
@@ -116,19 +113,6 @@ def detector_readings(path: str, pose_path: str, img_size: int, device) -> Dict[
     return out
 
 
-def train_example_pose_net(out: str, device, detector_steps: int = 2000,
-                           pose_steps: int = 3000) -> str:
-    """The example's pose net from the example's generator, which first
-    draws the detector's batches (its chunks of 200 draw them in the same
-    order); returns the file's path."""
-    os.makedirs(out, exist_ok=True)
-    rng = np.random.default_rng(0)
-    for _ in range(detector_steps):
-        rendered_detection_batch(rng, 8, 128)
-    example.train_pose_net(pose_steps, rng, out, device)
-    return os.path.join(out, "pose_topdown.msgpack")
-
-
 def later_stages(weights_dir: str, n_videos: int, epochs: int, out: str,
                  device) -> Dict[str, Any]:
     """The example's stages 2-4 (its ``main`` after the two trainings, at
@@ -166,15 +150,8 @@ def main(argv=None) -> List[Dict[str, Any]]:
     p.add_argument("--det-seed", type=int, default=0,
                    help="the detector trainer's init seed (the example's is 0); the data "
                         "and every other stage stay the example's")
-    p.add_argument("--train-pose-net", action="store_true",
-                   help="train only the example's pose net into OUT and exit")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    if args.train_pose_net:
-        path = train_example_pose_net(args.out, device)
-        print("pose_net " + json.dumps({"path": path, "pose_md5": md5(path),
-                                        "card": card_line()}), flush=True)
-        return []
     rows = []
     for row in args.rows:
         n_videos, epochs = (int(x) for x in row.split(":"))

@@ -148,8 +148,9 @@ def test_committed_rows_one_pose_net():
 def test_script_prints_the_verdict_perf_states():
     """``python examples_torch/fault1_verdict.py`` on the committed rows
     prints the verdict that PERF.md states (its one "Verdict" line, in the
-    newest entry on fault 1), in a process that loads neither jax nor the
-    JAX package."""
+    newest entry on fault 1), and the round-3 verdict, HL shift and interval
+    of PERF.md's round-3 line (four decimals), in a process that loads
+    neither jax nor the JAX package."""
     code = ("import runpy, sys; sys.argv = [sys.argv[1]]; runpy.run_path(sys.argv[0], "
             "run_name='__main__'); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'cvsd_tpu', 'flax')]; "
@@ -157,10 +158,17 @@ def test_script_prints_the_verdict_perf_states():
     r = subprocess.run([sys.executable, "-c", code, SCRIPT], capture_output=True, text=True,
                        cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stderr
-    printed = json.loads(r.stdout.strip().splitlines()[-1])["verdict"]
+    printed = json.loads(r.stdout.strip().splitlines()[-1])
     with open(os.path.join(ROOT, "PERF.md")) as f:
-        stated = re.findall(r"Verdict \(`fault1_verdict\.py`\):\s+\*\*(\w+)\*\*", f.read())
-    assert stated == [printed]
+        text = f.read().replace("\u2212", "-")
+    stated = re.findall(r"Verdict \(`fault1_verdict\.py`\):\s+\*\*(\w+)\*\*", text)
+    assert stated == [printed["verdict"]]
+    round_three = re.findall(r"Round 3, 26 a side:\s+\*\*(\w+)\*\*,\s+HL\s+([-+]\d\.\d{4})\s+"
+                             r"\[([-+]\d\.\d{4}),\s+([-+]\d\.\d{4})\]", text)
+    hl = printed["hl"]
+    assert printed["rounds"] == 3
+    assert round_three == [(printed["verdict"], f"{hl['shift']:+.4f}", f"{hl['lo']:+.4f}",
+                            f"{hl['hi']:+.4f}")]
 
 
 def test_verdict_script_imports_numpy_and_scipy_only():
@@ -484,75 +492,50 @@ def test_verdict_rows_carry_the_pose_net():
     assert all(isinstance(r["call"], int) and r["card"].startswith("NVIDIA H100") for r in used)
 
 
-def test_round_three_reading_is_perf_md():
-    """``decide`` on the committed rows gives the verdict, the HL shift and
-    its interval that PERF.md's round-3 line states (four decimals)."""
-    res = fault1_verdict.decide(_committed())
-    with open(os.path.join(ROOT, "PERF.md")) as f:
-        text = f.read().replace("\u2212", "-")
-    stated = re.findall(r"Round 3, 26 a side:\s+\*\*(\w+)\*\*,\s+HL\s+([-+]\d\.\d{4})\s+"
-                        r"\[([-+]\d\.\d{4}),\s+([-+]\d\.\d{4})\]", text)
-    hl = res["hl"]
-    assert stated == [(res["verdict"], f"{hl['shift']:+.4f}", f"{hl['lo']:+.4f}",
-                       f"{hl['hi']:+.4f}")]
+CALL_RECORDS = ["rows", "rerun", "spot_checks"]
 
 
-def test_predict_script_on_the_committed_rows():
-    """``fault1_predict.py`` with no rows to draw reads the committed rows'
-    own HL interval in every draw; with rows to draw, the verdict shares
-    sum to 1 and the interval's order statistic is the exact one at the
-    full count."""
-    import fault1_predict
+def _records(data, kind):
+    """(pr, call, package, seed) of each record of one kind: the rows, the
+    rows' runs again ('rerun'), or the spot checks."""
+    if kind == "rows":
+        return [(r["pr"], r["call"], r["package"], r["seed"]) for r in data["rows"]]
+    if kind == "rerun":
+        return [(r["rerun"]["pr"], r["rerun"]["call"], r["package"], r["seed"])
+                for r in data["rows"] if "rerun" in r]
+    return [(c["pr"], c["call"], c["package"], c["seed"]) for c in data["spot_checks"]]
 
+
+@pytest.mark.parametrize("kind", CALL_RECORDS)
+def test_records_name_a_real_call(kind):
+    """Each record's (pr, call) pair is a chip call that ``calls`` lists,
+    and that call ran the record's package and seed."""
     data = _committed()
-    n_port = sum(r["package"] == "port" for r in data["rows"])
-    n_jax = sum(r["package"] == "jax" for r in data["rows"])
-    hl = fault1_verdict.hodges_lehmann(fault1_verdict.window_aucs(data["rows"], "port"),
-                                       fault1_verdict.window_aucs(data["rows"], "jax"))
-    with contextlib.redirect_stdout(io.StringIO()):
-        same = fault1_predict.main(["--round", "3", "--port", "0", "--jax", "0", "--draws", "5"])
-        more = fault1_predict.main(["--round", "4", "--port", "3", "--jax", "2", "--draws", "50"])
-    for key in ("shift", "lo", "hi"):
-        assert same["percentiles_10_50_90"][key] == [hl[key]] * 3
-    assert sum(more["verdicts"].values()) == pytest.approx(1.0)
-    assert more["k"] == fault1_verdict.rank_k(n_port + 3, n_jax + 2)
+    calls = {(c["pr"], c["call"]): c for c in data["calls"]}
+    records = _records(data, kind)
+    assert records
+    for pr, call, package, seed in records:
+        assert seed in calls[(pr, call)][package], (pr, call, package, seed)
 
 
-def test_pose_net_alone_draws_the_examples_batches(monkeypatch, tmp_path):
-    """``synthetic_auc_probe.py --train-pose-net`` hands the example's pose
-    trainer the generator in the state the example's own run does, after
-    the detector's 2,000 batches in chunks of 200 (the scene renderer
-    stubbed by a draw of its batch's size, the detector trainer by a
-    stand-in that learns nothing)."""
-    import end_to_end_synthetic as example
-    import synthetic_auc_probe as probe
+def test_every_listed_call_seed_has_its_record():
+    """The reverse: each seed a listed call ran is a row, a rerun or a spot
+    check that names that call, so no call number stands for another's."""
+    data = _committed()
+    named = {rec for kind in CALL_RECORDS for rec in _records(data, kind)}
+    listed = {(c["pr"], c["call"], package, seed) for c in data["calls"]
+              for package in ("port", "jax") for seed in c[package]}
+    assert listed == named
 
-    def batch(rng, n, img):
-        x = rng.random((n, img // 64))
-        return x, x, x
 
-    class Trainer:
-        def __init__(self, *a, **k):
-            pass
-
-        def train_steps_scan(self, images, *a):
-            return {"losses": np.zeros(len(images))}
-
-        def save(self, *a, **k):
-            pass
-
-    handed = []
-
-    def pose_net(steps, rng, out, device):
-        handed.append((steps, rng.bit_generator.state))
-        return os.path.join(out, "pose_topdown.msgpack")
-
-    for module in (example, probe):
-        monkeypatch.setattr(module, "rendered_detection_batch", batch)
-    monkeypatch.setattr(example, "DetectorTrainer", Trainer)
-    monkeypatch.setattr(example, "train_pose_net", pose_net)
-    probe.train_example_pose_net(str(tmp_path), torch.device("cpu"))
-    rng = np.random.default_rng(0)
-    with contextlib.redirect_stdout(io.StringIO()):
-        example.train_detector(128, 2000, rng, str(tmp_path), torch.device("cpu"))
-    assert handed == [(3000, rng.bit_generator.state)]
+def test_spot_checks_repeat_their_rows():
+    """Each spot check ran a committed row again with the same pose net and
+    repeated its detector md5, window AUC and windows bit for bit."""
+    data = _committed()
+    rows = {(r["package"], r["seed"]): r for r in data["rows"]}
+    assert {(c["package"], c["seed"]) for c in data["spot_checks"]} == {("port", 0), ("jax", 14)}
+    for c in data["spot_checks"]:
+        row = rows[(c["package"], c["seed"])]
+        assert c["md5_match"] and c["auc_match"] and c["windows_match"]
+        assert (c["detector_md5"], c["pose_md5"]) == (row["detector_md5"], POSE_MD5)
+        assert (c["window_auc"], c["windows"]) == (row["window_auc"], row["windows"])
