@@ -4,8 +4,8 @@ the card's published peaks.
 FLOPs count the convolutions alone, as two operations a multiply-add
 (ultralytics' GFLOPs are the same count: thop's multiply-adds times two),
 so they are the same whatever implements the layers. BatchNorm, SiLU,
-pooling, upsampling, decode and NMS are left out: together they are under
-one percent of a frame's count at 640."""
+pooling, upsampling, decode and NMS, a few operations an element each,
+are left out."""
 
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ class _Count:
     def __init__(self):
         self.flops = 0
 
-    def conv(self, cin: int, cout: int, k: int, s: int, hw: Tuple[int, int], pad: int) -> Tuple[int, int]:
+    def conv(self, cin: int, cout: int, k: int, s: int, hw: Tuple[int, int],
+             pad: int) -> Tuple[int, int]:
         h = (hw[0] + 2 * pad - k) // s + 1
         w = (hw[1] + 2 * pad - k) // s + 1
         self.flops += 2 * cin * cout * k * k * h * w
@@ -96,7 +97,8 @@ def detector_flops(det: Dict) -> int:
 
 def pose_flops(td: Dict) -> int:
     """Convolution FLOPs of the top-down pose net on one crop ('SAME' padding)."""
-    wd, K, S = int(td.get("width", 32)), int(td.get("num_keypoints", 17)), int(td.get("crop_size", 64))
+    wd, K = int(td.get("width", 32)), int(td.get("num_keypoints", 17))
+    S = int(td.get("crop_size", 64))
     flops, hw = 0, S
     for cin, cout, s in ((3, wd, 1), (wd, 2 * wd, 2), (2 * wd, 2 * wd, 1), (2 * wd, 4 * wd, 2),
                          (4 * wd, 4 * wd, 1), (4 * wd, 4 * wd, 1)):
@@ -110,9 +112,10 @@ def detect_frame_flops(det: Dict) -> int:
     return detector_flops(det) * (2 if det.get("tta_flip") else 1)
 
 
-def train_step_flops(det: Dict, batch: int) -> int:
-    """A training step: forward, and backward at twice the forward."""
-    return 3 * detector_flops(det) * batch
+def nms_fixpoint_flops(batch: int, k: int) -> int:
+    """The fixpoint kernel's IoUs: 12 FLOP for each pair of its upper
+    triangle (the adjacency words' ANDs of each Jacobi step left out)."""
+    return 12 * batch * (k * (k - 1) // 2)
 
 
 def nms_bytes(batch: int, k: int, keep_bytes: int) -> int:

@@ -1,9 +1,19 @@
 """One run of one cell, found by name: ``BENCHMARK.json``'s entry names a
 configuration (``configs/<name>.json``) and a traffic mix
-(``traffic/<name>.json``), whose ``kind`` picks the loop here; the
-per-layer metrics are readers of their own (``metrics/<name>.py``), and
-each cell's limits for ``correct`` are ``limits/<cell>.json``. A new
-cell, configuration, mix or metric is new files and entries only."""
+(``traffic/<name>.json``), whose ``kind`` names the module that drives it
+(``harness/<kind>.py``); the per-layer metrics are readers of their own
+(``metrics/<name>.py``), and each cell's limits for ``correct`` are
+``limits/<cell>.json``. A new cell, configuration, mix, metric or kind of
+traffic is new files and entries only.
+
+A kind's module has ``build(cfg, traffic, seed, device)`` (the state, with
+the seconds of each step under ``phases``), ``warmup(state)``,
+``loop(state, seconds, trace)`` (the window's record), ``release(state)``
+(frees the program before the reference runs), ``judge(state, record)``
+(the readings compared with the limits), ``end_to_end(record)``,
+``counts(record)`` (attempted, failed), ``context(state, record)`` (what
+the metric readers read) and ``control(cfg, traffic, seed, device)`` (the
+control's readings)."""
 
 from __future__ import annotations
 
@@ -91,79 +101,63 @@ def set_caches() -> None:
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
     os.environ["CVSD_COMPILE_CACHE_DIR"] = os.path.join(build, "kernels")
     os.environ.setdefault("USE_FLAX", "0")
-    os.environ.setdefault("USE_JAX", "0")
+
+
+def kind(name: str, bench_dir: str = BENCH):
+    """``harness/<name>.py``: the module that drives a mix of kind ``name``."""
+    path = os.path.join(bench_dir, "harness", f"{name}.py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"no module for traffic kind {name!r}: {path}")
+    if os.path.samefile(bench_dir, BENCH):
+        return importlib.import_module(f"harness.{name}")
+    spec = importlib.util.spec_from_file_location(f"bench_kind_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
-             device: str = "cuda", bench: Optional[Dict] = None,
-             config: Optional[Dict] = None, traffic: Optional[Dict] = None,
-             chips: Optional[int] = None) -> Dict:
+             device: str = "cuda", config: Optional[Dict] = None,
+             traffic: Optional[Dict] = None) -> Dict:
     """One run: set-up, warm-up, the window, the readings, the comparison.
     Returns {e2e, per_layer, checks, correct, attempted, failed, breakdown,
-    device, forbidden}; ``device`` is None off the card. ``config`` and
-    ``traffic`` stand in for the cell's files (the CPU tests' small sizes)."""
+    device, forbidden, readings, setup_phases}; ``device`` is None off the
+    card. ``config`` and ``traffic`` stand in for the cell's files (the CPU
+    tests' small sizes)."""
     from harness import judge as J
     from harness import trace as T
 
-    bench = bench or benchmark()
+    bench = benchmark()
     cell = find_cell(bench, name)
     cfg = config or config_of(bench, cell)
     traffic = traffic or traffic_of(cell)
-    chips = chips or int(cell["chips"])
+    K = kind(traffic["kind"])
     on_card = torch.device(device).type == "cuda"
-    if traffic["kind"] == "detect":
-        from harness import detect as D
-        if on_card:
-            from cvsd_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
-            maybe_enable_compile_cache(os.environ["CVSD_COMPILE_CACHE_DIR"])
-        t_build = time.perf_counter()
-        st = D.build(cfg["detector"], traffic, seed, device)
-        D.warmup(st)
-        phases = dict(st["phases"], start=t_build - t_start)
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        setup_s = time.perf_counter() - t_start
-        tr = T.Trace() if trace else None
-        res = D.loop(st, seconds=seconds, trace=tr, trace_batches=int(traffic["trace_batches"]),
-                     keep=int(traffic["judge_batches"]))
-        if on_card:
-            torch.cuda.synchronize()
-        dev_info = device_info(chips) if on_card else None
-        found = forbidden_modules()
-        D.release(st)
-        readings = D.judge(st, res["kept"])
-        e2e = dict(D.end_to_end(res), setup_s=setup_s)
-        ctx = {"kind": "detect", "det": cfg["detector"], "traffic": traffic, "run": res,
-               "trace": tr.summary if tr else None}
-        attempted, failed = res["batches"] * int(traffic["batch"]), 0
-    elif traffic["kind"] == "train":
-        from harness import train as TT
-        t_build = time.perf_counter()
-        st = TT.build(cfg, traffic, seed, device)
-        phases = {"start": t_build - t_start, "build": time.perf_counter() - t_build}
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        setup_s = time.perf_counter() - t_start
-        tr = T.Trace() if trace else None
-        res = TT.loop(st, seconds, trace=tr)
-        if on_card:
-            torch.cuda.synchronize()
-        dev_info = device_info(chips) if on_card else None
-        found = forbidden_modules()
-        TT.release(st)
-        readings = TT.readings(st, TT.reference_steps(st))
-        e2e = {"train_steps_per_s": res["steps"] / res["window_s"], "setup_s": setup_s}
-        ctx = {"kind": "train", "det": cfg["detector"], "traffic": traffic, "run": res,
-               "trace": tr.summary if tr else None}
-        attempted, failed = res["steps"], 0
-    else:
-        raise SystemExit(f"unknown traffic kind {traffic['kind']!r}")
-    all_readings = readings
+    if on_card:
+        from cvsd_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
+        set_caches()
+        maybe_enable_compile_cache(os.environ["CVSD_COMPILE_CACHE_DIR"])
+    t_build = time.perf_counter()
+    st = K.build(cfg, traffic, seed, device)
+    K.warmup(st)
+    phases = dict(st["phases"], start=t_build - t_start)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t_start
+    tr = T.Trace() if trace else None
+    rec = K.loop(st, seconds, tr)
+    if on_card:
+        torch.cuda.synchronize()
+    dev_info = device_info(int(cell["chips"])) if on_card else None
+    found = forbidden_modules()
+    K.release(st)
+    readings = K.judge(st, rec)
+    e2e = dict(K.end_to_end(rec), setup_s=setup_s)
+    ctx = dict(K.context(st, rec), trace=tr.summary if tr else None)
+    attempted, failed = K.counts(rec)
     limits = limits_of(cell)
-    if limits:  # the cell compares the readings it has limits for
-        readings = {k: readings.get(k, float("nan")) for k in limits}
-    checks = J.verdict(readings, limits)
+    compared = {k: readings.get(k, float("nan")) for k in limits} if limits else readings
+    checks = J.verdict(compared, limits)
     per_layer = {}
     for m in metrics_for(bench, cell, "per_layer"):
         v = reader(m["name"])(ctx)
@@ -173,7 +167,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
            "e2e": {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                    for m in metrics_for(bench, cell, "end_to_end")},
            "per_layer": per_layer, "checks": checks, "device": dev_info,
-           "forbidden": found, "readings": all_readings, "setup_phases": phases}
+           "forbidden": found, "readings": readings, "setup_phases": phases}
     if tr is not None and tr.summary is not None:
         out["breakdown"] = T.breakdown(tr.summary)
         if dev_info is not None:
@@ -185,27 +179,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
 def control_readings(name: str, seed: int, device: str = "cuda",
                      config: Optional[Dict] = None, traffic: Optional[Dict] = None) -> Dict:
     """The control's readings: the reference computed one precision below
-    the configuration's (float8 for bfloat16) in the program's place, on as
-    many pool batches as a run judges, drawn from the seed."""
+    the configuration's in the program's place, at the cell's own size."""
     bench = benchmark()
     cell = find_cell(bench, name)
     cfg = config or config_of(bench, cell)
     traffic = traffic or traffic_of(cell)
-    if traffic["kind"] == "detect":
-        from harness import detect as D
-        from harness import traffic as TR
-
-        st = D.build(cfg["detector"], traffic, seed, device)
-        D.release(st)
-        rng = TR.seed_rng(seed, 1)
-        idx = rng.choice(int(traffic["pool_batches"]), int(traffic["judge_batches"]),
-                         replace=False)
-        return D.judge(st, [(int(i), None) for i in idx], fp8=True)
-    if traffic["kind"] == "train":
-        from harness import train as TT
-
-        st = TT.inputs(cfg, traffic, seed, device)
-        st["p0"] = st["params"]
-        ref = TT.reference_steps(st)
-        return TT.readings(st, ref, TT.reference_steps(st, fp8=True))
-    raise SystemExit(f"unknown traffic kind {traffic['kind']!r}")
+    return kind(traffic["kind"]).control(cfg, traffic, seed, device)

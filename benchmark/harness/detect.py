@@ -29,13 +29,14 @@ from harness.weights import calibrated
 from reference import detector as R
 
 
-def build(det: Dict, traffic: Dict, seed: int, device) -> Dict:
+def build_pipeline(det: Dict, traffic: Dict, seed: int, device) -> Dict:
     """The pool, the weights and the program's pipeline; ``phases`` holds
     the seconds each took."""
+    t = [time.perf_counter()]
     from cvsd_tpu_torch.models.pose_topdown import build_pose_topdown
     from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
 
-    t = [time.perf_counter()]
+    t.append(time.perf_counter())
     pool = TR.detect_pool(traffic, seed, device)
     t.append(time.perf_counter())
     calib = torch.from_numpy(pool[0, :min(32, pool.shape[1])]).to(device)
@@ -48,7 +49,7 @@ def build(det: Dict, traffic: Dict, seed: int, device) -> Dict:
     pipe = DetectionPipeline(cfg, state_dict=det_params, seed=seed, device=device,
                              pose_model=pose)
     t.append(time.perf_counter())
-    phases = dict(zip(("frames", "weights", "pipeline"), np.diff(t).tolist()))
+    phases = dict(zip(("import", "frames", "weights", "pipeline"), np.diff(t).tolist()))
     return {"pool": pool, "det_params": det_params, "pose_params": pose_params, "pipe": pipe,
             "det": det, "traffic": traffic, "seed": seed, "device": device, "phases": phases}
 
@@ -58,8 +59,8 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def loop(st: Dict, seconds: float = 0.0, batches: int = 0, trace: Optional[T.Trace] = None,
-         trace_batches: int = 0, keep: int = 0) -> Dict:
+def run_loop(st: Dict, seconds: float = 0.0, batches: int = 0, trace: Optional[T.Trace] = None,
+             trace_batches: int = 0, keep: int = 0) -> Dict:
     """Run the closed loop over ``batches`` batches, or for a window of
     ``seconds``. Returns the window's counts, each counted batch's latency,
     the dispatch times and a sample of ``keep`` counted batches, drawn from
@@ -118,7 +119,7 @@ def loop(st: Dict, seconds: float = 0.0, batches: int = 0, trace: Optional[T.Tra
     if window_span is not None:
         window_span.__exit__(None, None, None)
         trace.stop()
-    return {"window_s": max(last - t0, 1e-9),
+    return {"window_s": max(last - t0, 1e-9), "batch": pool.shape[1],
             "batches": done, "frames": frames, "latency_s": lat,
             "dispatch_s": dispatch, "valid_boxes": valid_boxes,
             "kept": [k for k in kept if k is not None], "untraced": pre}
@@ -126,13 +127,13 @@ def loop(st: Dict, seconds: float = 0.0, batches: int = 0, trace: Optional[T.Tra
 
 def warmup(st: Dict) -> None:
     t = time.perf_counter()
-    loop(st, batches=int(st["traffic"].get("warmup_batches", 12)))
+    run_loop(st, batches=int(st["traffic"].get("warmup_batches", 12)))
     _sync(st["device"])
     st["phases"]["warmup"] = time.perf_counter() - t
 
 
 @torch.no_grad()
-def judge(st: Dict, kept: List, fp8: bool = False, block: int = 32) -> Dict[str, float]:
+def judge_kept(st: Dict, kept: List, fp8: bool = False, block: int = 32) -> Dict[str, float]:
     """Readings of the kept batches against the reference. With ``fp8``
     the reference in float8 takes the program's place (the control)."""
     R.float32_math()
@@ -171,3 +172,38 @@ def end_to_end(res: Dict) -> Dict[str, float]:
     lat = np.asarray(res["latency_s"], dtype=np.float64)
     return {"detect_fps": res["frames"] / res["window_s"],
             "detect_p95_ms": float(np.percentile(lat, 95)) * 1e3 if lat.size else float("nan")}
+
+
+# -- the kind's interface (``harness/cells.py``) -------------------------------
+
+
+def build(cfg: Dict, traffic: Dict, seed: int, device) -> Dict:
+    return build_pipeline(cfg["detector"], traffic, seed, device)
+
+
+def loop(st: Dict, seconds: float, trace: Optional[T.Trace]) -> Dict:
+    traffic = st["traffic"]
+    return run_loop(st, seconds=seconds, trace=trace, trace_batches=int(traffic["trace_batches"]),
+                    keep=int(traffic["judge_batches"]))
+
+
+def judge(st: Dict, rec: Dict) -> Dict[str, float]:
+    return judge_kept(st, rec["kept"])
+
+
+def counts(rec: Dict):
+    return rec["batches"] * int(rec["batch"]), 0
+
+
+def context(st: Dict, rec: Dict) -> Dict:
+    return {"kind": "detect", "det": st["det"], "traffic": st["traffic"], "run": rec}
+
+
+def control(cfg: Dict, traffic: Dict, seed: int, device) -> Dict[str, float]:
+    """The reference in float8 in the program's place, on as many pool
+    batches as a run judges, drawn from the seed."""
+    st = build_pipeline(cfg["detector"], traffic, seed, device)
+    release(st)
+    idx = TR.seed_rng(seed, 1).choice(int(traffic["pool_batches"]),
+                                      int(traffic["judge_batches"]), replace=False)
+    return judge_kept(st, [(int(i), None) for i in idx], fp8=True)

@@ -12,20 +12,11 @@ rounding gives a box, as camera footage does."""
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def load(name: str) -> Dict:
-    with open(os.path.join(HERE, "traffic", f"{name}.json")) as f:
-        return json.load(f)
 
 
 def generator(seed: int, device, stream: int) -> torch.Generator:
@@ -100,35 +91,3 @@ def reservoir_keep(rng: np.random.Generator, k: int):
 def seed_rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([int(seed) % (2 ** 64), int(seed) // (2 ** 64), stream])
 
-
-@torch.no_grad()
-def train_chunk(n_steps: int, batch: int, size: int, max_gt: int, num_keypoints: int, seed: int,
-                device, stream: int):
-    """``n_steps`` training batches, the detector trainer's fixture made on
-    ``device``: bright rectangles on dark noise, 1..``max_gt`` a image, with
-    their boxes and keypoints laid on a fixed grid inside each box. Returns
-    host arrays (images (N, B, S, S, 3) float32, boxes (N, B, G, 4), valid
-    (N, B, G), keypoints (N, B, G, K, 2))."""
-    g = generator(seed, device, stream)
-    N, B, G, K = n_steps, batch, max_gt, num_keypoints
-    img = _u(g, (N * B, size, size, 3), device, 0.0, 0.25)
-    count = torch.randint(1, G + 1, (N * B,), generator=g, device=device)
-    w = torch.randint(size // 8, size // 3, (N * B, G), generator=g, device=device)
-    h = torch.randint(size // 8, size // 3, (N * B, G), generator=g, device=device)
-    x1 = (_u(g, (N * B, G), device) * (size - w)).floor()
-    y1 = (_u(g, (N * B, G), device) * (size - h)).floor()
-    colour = _u(g, (N * B, G, 3), device, 0.7, 1.0)
-    valid = torch.arange(G, device=device)[None] < count[:, None]
-    xs = torch.arange(size, device=device)
-    for j in range(G):
-        inx = (xs[None] >= x1[:, j, None]) & (xs[None] < (x1 + w)[:, j, None])
-        iny = (xs[None] >= y1[:, j, None]) & (xs[None] < (y1 + h)[:, j, None])
-        m = (iny[:, :, None] & inx[:, None, :] & valid[:, j, None, None])[..., None]
-        img = torch.where(m, colour[:, j, None, None, :], img)
-    boxes = torch.stack([x1, y1, x1 + w, y1 + h], -1).float() * valid[..., None]
-    fr = torch.linspace(0.15, 0.85, max(K, 1), device=device)
-    kx = x1[..., None] + fr * w[..., None]
-    ky = y1[..., None] + fr.flip(0) * h[..., None]
-    kpts = torch.stack([kx, ky], -1).float() * valid[..., None, None]
-    host = lambda t: t.reshape(N, B, *t.shape[1:]).cpu().numpy()  # noqa: E731
-    return host(img), host(boxes), host(valid), host(kpts)

@@ -23,11 +23,11 @@ DFL_SLOPE = 0.5
 
 
 def make_params(spec: Spec, seed: int, device, dtype=torch.float32,
-                stream: int = 0, bn_gain: float = None) -> Dict[str, torch.Tensor]:
+                stream: int = 0) -> Dict[str, torch.Tensor]:
     """{name: tensor} for ``spec`` from ``seed`` (and ``stream``, which
     separates two nets of one seed). Convolution weights are lecun-normal
     (std 1/sqrt(fan_in)); their biases N(0, 0.1); BatchNorm scales
-    ``bn_gain`` (default BN_GAIN) x (1 + N(0, 0.1)), shifts N(0, 0.1), running means N(0, 0.05),
+    BN_GAIN x (1 + N(0, 0.1)), shifts N(0, 0.1), running means N(0, 0.05),
     running variances 1 + |N(0, 0.1)|; the DFL head's bins as
     ``dfl_bias`` says. Made in float32, then rounded to ``dtype``."""
     gen = torch.Generator(device=device)
@@ -43,7 +43,7 @@ def make_params(spec: Spec, seed: int, device, dtype=torch.float32,
         if kind == "conv":
             x = x * (1.0 / math.sqrt(math.prod(shape[1:])))
         elif kind == "bn_scale":
-            x = (BN_GAIN if bn_gain is None else bn_gain) * (1.0 + 0.1 * x)
+            x = BN_GAIN * (1.0 + 0.1 * x)
         elif kind == "bn_bias":
             x = 0.1 * x
         elif kind == "dfl_bias":

@@ -3,9 +3,11 @@ on many seeds and the control's (the reference in float8 in the
 program's place) on a few, at the cell's own size, in one process.
 
     python3 benchmark/readings.py --workload <cell> --seeds 1 2 ... \\
-        --control-seeds 7 8 9 --seconds 5
+        --control-seeds 7 8 9
 
-Each seed prints one JSON line: the readings, the run's end-to-end
+on the card. Each program seed runs the cell with a window of WINDOW_S
+seconds (the comparison judges the same number of batches at any length);
+each seed prints one JSON line: the readings, the run's end-to-end
 numbers, and which side it is."""
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os  # noqa: E402
 import sys  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+WINDOW_S = 3.0
 
 
 def main(argv=None) -> int:
@@ -27,22 +30,19 @@ def main(argv=None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="*", default=[])
     p.add_argument("--control-seeds", type=int, nargs="*", default=[])
-    p.add_argument("--seconds", type=float, default=5.0)
-    p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     sys.path[:0] = [HERE, os.path.dirname(HERE)]
     from harness import cells
 
     cells.set_caches()
     for seed in a.seeds:
-        out = cells.run_cell(a.workload, seed, a.seconds, False, time.perf_counter(),
-                             device=a.device)
+        out = cells.run_cell(a.workload, seed, WINDOW_S, False, time.perf_counter())
         print(json.dumps({"side": "program", "seed": seed,
                           "readings": out["readings"],
                           "e2e": {k: m["value"] for k, m in out["e2e"].items()}}), flush=True)
     for seed in a.control_seeds:
         print(json.dumps({"side": "control", "seed": seed,
-                          "readings": cells.control_readings(a.workload, seed, a.device)}),
+                          "readings": cells.control_readings(a.workload, seed)}),
               flush=True)
     return 0
 

@@ -18,8 +18,6 @@ Departures from the program's arithmetic, each deliberate:
   control, one precision below the configuration's bfloat16.
 - NMS is the textbook sequential greedy loop over the score-sorted
   candidates, not a Jacobi fixpoint or a CUDA kernel.
-- BatchNorm in training mode uses the batch's biased variance computed as
-  mean((x - mean)^2), not E[x^2] - E[x]^2.
 """
 
 from __future__ import annotations
@@ -48,14 +46,12 @@ def float32_math() -> None:
 
 @dataclass
 class Ctx:
-    """Parameters and how to run them: ``train`` normalizes with the batch's
-    statistics; ``calibrate`` sets each output convolution (one with a bias)
-    on this forward's input: its weights lose their part along the input's
-    mean, and are scaled and its bias shifted so that its channels centre on
-    their biases and lie within OUT_REACH of them at OUT_QUANTILE; ``fp8``
-    rounds convolution operands to float8 e4m3."""
+    """Parameters and how to run them: ``calibrate`` sets each output
+    convolution (one with a bias) on this forward's input: its weights lose
+    their part along the input's mean, and are scaled and its bias shifted
+    so that its channels centre on their biases and lie within OUT_REACH of
+    them at OUT_QUANTILE; ``fp8`` rounds convolution operands to float8 e4m3."""
     params: Dict[str, torch.Tensor]
-    train: bool = False
     calibrate: bool = False
     fp8: bool = False
     cache: Dict[str, torch.Tensor] = field(default_factory=dict)
@@ -224,12 +220,9 @@ def conv(ctx: Ctx, name: str, x: torch.Tensor, stride: int = 1, padding=0,
 
 
 def batch_norm(ctx: Ctx, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm with the running statistics, eps BN_EPS."""
     scale, shift = ctx.p(f"{name}.weight"), ctx.p(f"{name}.bias")
-    if ctx.train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = ((x - mean[None, :, None, None]) ** 2).mean(dim=(0, 2, 3))
-    else:
-        mean, var = ctx.p(f"{name}.running_mean"), ctx.p(f"{name}.running_var")
+    mean, var = ctx.p(f"{name}.running_mean"), ctx.p(f"{name}.running_var")
     inv = scale / torch.sqrt(var + BN_EPS)
     return (x - mean[None, :, None, None]) * inv[None, :, None, None] + shift[None, :, None, None]
 

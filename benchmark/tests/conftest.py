@@ -17,21 +17,20 @@ for p in (BENCH, os.path.dirname(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TINY = {"img_size": 128, "width_mult": 0.25, "depth_mult": 0.34}
+# a cap that every tiny frame fills, as every frame fills the cells' own
+TINY = {"img_size": 128, "width_mult": 0.25, "depth_mult": 0.34, "max_detections": 32}
 TINY_POSE = {"num_keypoints": 17, "width": 8, "crop_size": 32}
 TINY_TRAFFIC = {"detect": {"frame_h": 60, "frame_w": 80, "batch": 4, "pool_batches": 3,
-                           "warmup_batches": 2, "judge_batches": 2, "trace_batches": 3},
-                "train": {"batch": 8, "chunk": 3, "pool_chunks": 1}}
+                           "warmup_batches": 2, "judge_batches": 2, "trace_batches": 3}}
 
 
-def tiny(name: str, config: str = None, traffic: str = None):
-    """(bench, config, traffic) of the cell ``name`` (or of the files
-    ``config`` and ``traffic``), cut to a CPU test's size."""
+def tiny(name: str):
+    """(bench, config, traffic) of the cell ``name``, cut to a CPU test's size."""
     from harness import cells
 
     bench = cells.benchmark()
-    cell = ({"config": config, "traffic": traffic} if config else cells.find_cell(bench, name))
-    cfg = copy.deepcopy(cells.load_json(BENCH, "configs", f"{cell['config']}.json"))
+    cell = cells.find_cell(bench, name)
+    cfg = copy.deepcopy(cells.config_of(bench, cell))
     cfg["detector"].update(TINY)
     if "pose_topdown" in cfg["detector"]:
         cfg["detector"]["pose_topdown"] = dict(TINY_POSE)

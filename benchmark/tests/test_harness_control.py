@@ -16,7 +16,7 @@ CELLS = ["v5m-pose-detect-b128", "yolov5mu-topdown-detect-b32"]
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_reads_far_above_the_program_at_a_small_size(cell):
     _, cfg, traffic = tiny(cell)
-    prog = cells.run_cell(cell, 2 ** 33 + 7, 1.0, False, time.perf_counter(), device="cpu",
+    prog = cells.run_cell(cell, 2 ** 33 + 7, 3.0, False, time.perf_counter(), device="cpu",
                           config=cfg, traffic=traffic)["readings"]
     ctl = cells.control_readings(cell, 2 ** 33 + 7, "cpu", cfg, traffic)
     compared = cells.limits_of(cells.find_cell(cells.benchmark(), cell))

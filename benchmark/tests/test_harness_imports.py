@@ -29,16 +29,15 @@ def _top_names(body: str):
 
 def test_harness_metrics_traffic_and_program_load_no_jax():
     names = _top_names("""
-from harness import cells, detect, train, judge, trace, traffic, weights
+from harness import cells, detect, judge, trace, traffic, weights
 import flops, readings, run
-from reference import detector, train as rtrain
+from reference import detector
 bench = cells.benchmark()
 for m in bench["per_layer"]:
     cells.reader(m["name"])
 for w in bench["workloads"]:
     cells.traffic_of(w); cells.config_of(bench, w); cells.limits_of(w)
 from cvsd_tpu_torch.pipeline.preprocess import DetectionPipeline
-from cvsd_tpu_torch.train.detector_train import DetectorTrainer
 from cvsd_tpu_torch.models.pose_topdown import build_pose_topdown
 from cvsd_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
 """)
@@ -47,5 +46,5 @@ from cvsd_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
 
 
 def test_reference_alone_loads_nothing_of_the_program():
-    names = _top_names("from reference import detector, train")
+    names = _top_names("from reference import detector")
     assert not names & (set(FORBIDDEN) | {"cvsd_tpu_torch", "harness"}), sorted(names)

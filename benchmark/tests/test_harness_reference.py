@@ -1,8 +1,5 @@
-"""The plain references against the port on the CPU, in float32, at a
-small size: the whole detection path of both configurations, and the
-training step's loss, gradient and update."""
-
-import copy
+"""The plain reference against the port on the CPU, in float32, at a
+small size: the whole detection path of both configurations."""
 
 import numpy as np
 import pytest
@@ -10,7 +7,6 @@ import torch
 
 from conftest import tiny
 from harness import detect as D
-from harness import train as TT
 from reference import detector as R
 
 
@@ -18,7 +14,7 @@ from reference import detector as R
 def test_detection_path_matches_the_port_in_float32(cell):
     _, cfg, traffic = tiny(cell)
     det = dict(cfg["detector"], dtype="float32")
-    st = D.build(det, traffic, 5, "cpu")
+    st = D.build_pipeline(det, traffic, 5, "cpu")
     frames = st["pool"][1]
     got = st["pipe"].detect_frames(frames)
     ref = R.detect(R.Ctx(st["det_params"]), det, torch.from_numpy(frames),
@@ -32,17 +28,3 @@ def test_detection_path_matches_the_port_in_float32(cell):
         r = ref[name].numpy()
         scale = max(1.0, float(np.abs(r).max()))
         assert np.abs(g[v] - r[v]).max() <= 1e-4 * scale, name
-
-
-def test_training_step_matches_the_port_in_float32():
-    _, cfg, traffic = tiny(None, "v5m-pose", "train-640-b16")
-    cfg = copy.deepcopy(cfg)
-    cfg["detector"]["dtype"] = "float32"
-    st = TT.build(cfg, traffic, 5, "cpu")
-    ref = TT.reference_steps(st)
-    r = TT.readings(st, ref)
-    # float32 on both sides: rounding only. Adam's first steps move a weight
-    # by about lr whatever the size of its gradient, so a rounding in a
-    # gradient near zero moves the later losses by more than the first
-    assert r["loss1_gap"] < 1e-5 and r["loss_gap"] < 5e-3
-    assert r["grad_gap_worst"] < 1e-3 and r["step_gap"] < 2e-2

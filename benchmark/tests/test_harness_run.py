@@ -46,7 +46,7 @@ def test_result_line_has_only_the_contracts_keys(trace):
     import run
 
     bench, cfg, traffic = tiny("v5m-pose-detect-b128")
-    out = cells.run_cell("v5m-pose-detect-b128", 2 ** 33 + 1, 1.0, trace, time.perf_counter(),
+    out = cells.run_cell("v5m-pose-detect-b128", 2 ** 33 + 1, 3.0, trace, time.perf_counter(),
                          device="cpu", config=cfg, traffic=traffic)
     line = json.loads(json.dumps(run.result_line(out, trace)))
     assert set(line) <= CONTRACT and set(line) >= CONTRACT - {"breakdown"}

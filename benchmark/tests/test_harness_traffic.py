@@ -17,21 +17,6 @@ def test_frames_repeat_for_a_seed_and_keep_their_sizes():
     assert not np.array_equal(a, c)
 
 
-def test_training_batches_repeat_for_a_seed():
-    a = TR.train_chunk(2, 3, 64, 8, 17, BIG, "cpu", stream=0)
-    b = TR.train_chunk(2, 3, 64, 8, 17, BIG, "cpu", stream=0)
-    c = TR.train_chunk(2, 3, 64, 8, 17, BIG, "cpu", stream=1)
-    for x, y, z in zip(a, b, c):
-        assert x.shape == z.shape
-        assert np.array_equal(x, y)
-    assert not np.array_equal(a[0], c[0])
-    images, boxes, valid, kpts = a
-    assert images.shape == (2, 3, 64, 64, 3) and kpts.shape == (2, 3, 8, 17, 2)
-    assert valid.any(-1).all()  # at least one person an image
-    inside = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] <= 64)
-    assert (inside | ~valid).all()
-
-
 def test_reservoir_sample_is_seeded_and_uniform_in_size():
     picks = []
     for _ in range(2):
